@@ -3,24 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (salient_plusplus_tpu_torch) on the card and
-fails (non-zero exit, no result line) if any phase fails:
+Drives the port's main paths (salient_plusplus_tpu_torch) on the card and
+fails (non-zero exit, no result line) if any phase fails. The kernels are
+K1 sorted segment sum, K2 fused gather + segment sum and K3 row gather
+(``salient_plusplus_tpu_torch/csrc``).
 
 1. device: name, count, power limit; TF32 off for float32 matmuls;
-2. build: the host sampler (g++) and the CUDA kernels (nvcc, sm_90a),
+2. build: the host sampler (g++) and each CUDA kernel (nvcc, sm_90a), all
    started together, with nvcc's register / shared-memory / spill report;
-3. kernel vs plain: the sorted segment-sum kernel against its plain torch
-   version at the main path's shapes (every hop of one bench-shape batch,
-   forward and mirrored backward) and at edge cases, bf16 and f32; times
-   kernel, plain version and the ``index_add_`` yardstick;
+3. kernel vs plain, each kernel against its plain torch version at the main
+   paths' shapes and at edge cases, bf16 and f32 (K3 also an integer
+   table); times kernel, plain version, bound and library yardstick:
+   K1 at every K1 call of one bench-shape train step (the mirrored hops,
+   forward and backward); K2 at the step's layer 0 (global src ids into
+   the 1M-row table) and K3 at its frontier prefix; K2 and K3 at a hub
+   chunk and a typical chunk of layerwise inference, F = 128 and 256;
 4. the driver CLI end to end at the default model shape (batch 1024,
-   fanouts 15,10,5, hidden 256, 3 layers) on a 100k-node synthetic graph;
-   the kernel's launch count is read around this run;
+   fanouts 15,10,5, hidden 256, 3 layers) on a 100k-node synthetic graph,
+   batchwise and then layerwise final test (slice 2's path); the kernels'
+   launch counts are read around each run; then one epoch of SAGEClassic,
+   GIN, JKNet and SAGEResInception (2 layers, hidden 128, layerwise);
 5. bench-shape training: the 1M-node power-law graph of bench.py with its
    config, step time, edges/s, padding waste, H2D bytes, starvation,
    peak memory; then 10 steps under torch.profiler for the device's busy
-   and idle share and its time by kernel;
-6. card against CPU: one train step from the same weights and batch.
+   and idle share and its time by kernel; then layerwise inference of that
+   SAGE over the whole graph: seconds per layer, nodes/s, launches, peak
+   memory, and one layer under torch.profiler;
+6. card against CPU: one train step from the same weights and batch, and
+   layerwise inference of a 20k-node graph at the same width.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -41,11 +51,30 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-K1_SOURCE = "salient_plusplus_tpu_torch/csrc/sorted_segment_sum.cu"
-K1_REPLACES = "salient_plusplus_tpu/ops/mxu_segment.py:68"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "sorted_segment_sum": ("salient_plusplus_tpu_torch/csrc/"
+                           "sorted_segment_sum.cu",
+                           "salient_plusplus_tpu/ops/mxu_segment.py:68"),
+    "fused_gather_segment_sum": ("salient_plusplus_tpu_torch/csrc/"
+                                 "fused_gather_segment_sum.cu",
+                                 "salient_plusplus_tpu/ops/"
+                                 "pallas_aggregate.py:38"),
+    "gather_rows": ("salient_plusplus_tpu_torch/csrc/gather_rows.cu",
+                    "salient_plusplus_tpu/ops/pallas_gather.py:32"),
+}
+LAYERWISE_CHUNK = 4096   # RunConfig.inference_chunk's default
 BENCH_CFG = dict(train_batch_size=1024, train_fanouts=[15, 10, 5],
                  hidden_features=256, num_layers=3, lr=0.003,
                  model_name="SAGE", max_batches_in_flight=8)
+# the edge cases of K1 and K2: (label, E, F, T, real edges, pad id, hub)
+EDGE_CASES = [
+    ("F64", 1024, 64, 128, 900, 128, False),
+    ("F100", 2048, 100, 384, 1737, 384, False),
+    ("F8 no real edges", 512, 8, 128, 0, 128, False),
+    ("F12 pads above T", 1024, 12, 256, 800, 640, False),
+    ("hub + empty segments", 4096, 16, 256, 3000, 256, True),
+    ("F300 two passes", 20000, 300, 5000, 19000, 5000, False),
+]
 
 
 def log(*a):
@@ -64,13 +93,22 @@ def nvidia_smi() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            budget_ms: float = 400.0) -> float:
+    """Mean device time of ``fn`` over back-to-back calls: ``iters`` of
+    them, fewer where one call alone would take the run past
+    ``budget_ms`` (hub-row calls take hundreds of ms)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    first = start.elapsed_time(end)
+    iters = max(1, min(iters, int(budget_ms / max(first, 1e-3))))
+    for _ in range(warmup - 1 if iters >= warmup else 0):
+        fn()
+    torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
         fn()
@@ -92,28 +130,27 @@ def phase_build():
             errors.append(f"{name}: {e}")
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("sampler", build.sampler_lib_path),
-                ("kernels", build.kernel_lib_path))]
+    jobs = [("sampler", build.sampler_lib_path)] + [
+        (k, lambda k=k: build.kernel_lib_path(k)) for k in build.KERNELS]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise RuntimeError("build failed: " + "; ".join(errors))
-    log(f"build: {time.perf_counter() - t0:.1f} s (sampler and kernels "
-        f"in parallel)")
-    for line in build.build_log(paths["kernels"]).splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry",
-                                   "smem")):
-            log("  ptxas:", line.strip())
+    log(f"build: {time.perf_counter() - t0:.1f} s (sampler and "
+        f"{len(build.KERNELS)} kernels in parallel)")
+    for k in build.KERNELS:
+        for line in build.build_log(paths[k]).splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry", "smem")):
+                log("  ptxas:", line.strip())
 
 
 # ---------------------------------------------------------------- phase 3
-def main_path_cases(trainer, dev):
-    """(label, ids, T, F, n_real) for every K1 call of one train step on a
-    real bench-shape batch: each hop forward (by dst) and each mirrored
-    hop backward (by msrc)."""
+def bench_batch(trainer, dev):
+    """One decoded bench-shape train batch on the card."""
     from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
     from salient_plusplus_tpu_torch.train.step import decode_batch
 
@@ -122,15 +159,22 @@ def main_path_cases(trainer, dev):
     it = iter(ts)
     batch = decode_batch(next(DeviceFeeder(it, dev, depth=1)))
     it.close()
+    return batch
+
+
+def k1_cases(trainer, batch):
+    """(label, ids, T, F, n_real) for every K1 call of one train step: each
+    mirrored hop forward (by dst) and backward (by msrc). The hop without
+    a mirror (layer 0) runs K2."""
     H = trainer.cfg.hidden_features
     cases = []
     for i, e in enumerate(batch.edges):
+        if e.msrc is None:
+            continue
         in_cap, out_cap = batch.layer_caps(i)
-        F = trainer.in_features if i == 0 else H
         n = int(e.count)
-        cases.append((f"fwd layer{i}", e.dst, out_cap, F, n))
-        if e.msrc is not None:
-            cases.append((f"bwd layer{i}", e.msrc, in_cap, F, n))
+        cases.append((f"fwd layer{i}", e.dst, out_cap, H, n))
+        cases.append((f"bwd layer{i}", e.msrc, in_cap, H, n))
     return cases
 
 
@@ -184,15 +228,7 @@ def phase_edge_cases(dev):
         _sorted_segment_sum_plain, sorted_segment_sum_mxu)
 
     rng = np.random.default_rng(1)
-    cases = [  # (label, E, F, T, n_real, pad id, hub)
-        ("F64", 1024, 64, 128, 900, 128, False),
-        ("F100", 2048, 100, 384, 1737, 384, False),
-        ("F8 no real edges", 512, 8, 128, 0, 128, False),
-        ("F12 pads above T", 1024, 12, 256, 800, 640, False),
-        ("hub + empty segments", 4096, 16, 256, 3000, 256, True),
-        ("F300 two passes", 20000, 300, 5000, 19000, 5000, False),
-    ]
-    for label, E, F, T, n, pad, hub in cases:
+    for label, E, F, T, n, pad, hub in EDGE_CASES:
         if hub:
             real = np.concatenate([np.zeros(int(n * 0.8)),
                                    np.sort(rng.integers(1, T, n - int(n * 0.8)))])
@@ -218,21 +254,240 @@ def phase_edge_cases(dev):
             f"match the plain version")
 
 
+def _ms_of_bytes(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _row(label, ms, plain, lib, bound, err, extra, power):
+    log(f"  {label}: {extra}  kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+        f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
+        f"bound_us={bound * 1e3:.2f} max_abs_err={err:.3g}  [{power}]")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                err=err)
+
+
+def measure_k2(label, emb, src, dst, count, T, n, power, time_it=True):
+    """K2 against its plain version on the card (and, with ``time_it``,
+    the kernel, plain and library times beside the bound). f32 differs in
+    summation order only: 1e-4 plus 1e-6 times the segment's sum of
+    |terms|; bf16 rows are summed in f32 by both, rtol 1e-2."""
+    from salient_plusplus_tpu_torch.ops.pallas_aggregate import (
+        _fused_gather_segment_sum_plain as plain, fused_gather_segment_sum)
+
+    got = fused_gather_segment_sum(emb, src, dst, count, T)
+    ref = plain(emb, src, dst, count, T)
+    torch.cuda.synchronize()
+    if emb.dtype == torch.float32:
+        allowed = 1e-4 + 1e-6 * plain(emb.abs(), src, dst, count, T)
+        check(bool(((got - ref).abs() <= allowed).all()),
+              f"K2 {label} f32: max error {float((got - ref).abs().max())}")
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-2, atol=1e-2)
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if not time_it:
+        return err
+    F = emb.shape[1]
+    # the function reads each distinct table row of a real edge once (hub
+    # ids repeat), each src and dst id once, and writes the f32 output once
+    rows = int(torch.unique(src[:n][dst[:n] < T]).numel())
+    nbytes = rows * F * emb.element_size() + 8 * n + 4 * T * F
+    bound = max(_ms_of_bytes(nbytes), n * F / F32_OPS_PER_S * 1e3)
+    ms = cuda_ms(lambda: fused_gather_segment_sum(emb, src, dst, count, T))
+    plain_ms = cuda_ms(lambda: plain(emb, src, dst, count, T))
+    # one library call for the same sum: a CSR [T, N] of ones times emb
+    crow = torch.searchsorted(
+        dst[:n].contiguous(), torch.arange(T + 1, dtype=torch.int32,
+                                           device=dst.device),
+        out_int32=True)
+    csr = torch.sparse_csr_tensor(
+        crow, src[:n].contiguous(), torch.ones(n, dtype=emb.dtype,
+                                               device=emb.device),
+        size=(T, emb.shape[0]))
+    try:
+        lib = cuda_ms(lambda: torch.sparse.mm(csr, emb))
+    except (NotImplementedError, RuntimeError) as e:
+        # the yardstick only: this torch has no single call for the sum in
+        # emb's dtype, and library_ms is then null
+        log(f"  K2 {label}: no library call: torch.sparse.mm in "
+            f"{emb.dtype}: {str(e).splitlines()[0][:120]}")
+        lib = None
+    longest = int(torch.diff(crow).max()) if T else 0
+    return _row(f"K2 {label}", ms, plain_ms, lib, bound, err,
+                f"E={src.shape[0]} real={n} distinct_rows={rows} T={T} "
+                f"N={emb.shape[0]} F={F} longest={longest} "
+                f"{str(emb.dtype)[6:]} ({nbytes} B)",
+                power)
+
+
+def measure_k3(label, table, idx, power, time_it=True):
+    """K3 against its plain version on the card: a byte copy, exact."""
+    from salient_plusplus_tpu_torch.ops.pallas_gather import (
+        _gather_rows_plain as plain, pallas_gather_rows)
+
+    got = pallas_gather_rows(table, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain(table, idx)), f"K3 {label} differs")
+    if not time_it:
+        return 0.0
+    n, row_bytes = idx.shape[0], table.shape[1] * table.element_size()
+    # each distinct row read once, each output row written once, ids once
+    rows = int(torch.unique(idx).numel())
+    nbytes = (rows + n) * row_bytes + 4 * n
+    ms = cuda_ms(lambda: pallas_gather_rows(table, idx))
+    plain_ms = cuda_ms(lambda: plain(table, idx))
+    lib = cuda_ms(lambda: torch.index_select(table, 0, idx))
+    return _row(f"K3 {label}", ms, plain_ms, lib, _ms_of_bytes(nbytes), 0.0,
+                f"n={n} distinct_rows={rows} N={table.shape[0]} "
+                f"row_bytes={row_bytes} "
+                f"{str(table.dtype)[6:]} ({nbytes} B)", power)
+
+
+def phase_k2_k3_main(trainer, batch, dev, power):
+    """K2 and K3 at the main paths' shapes: a train step's layer 0 (global
+    src ids into the 1M-row bf16 table) and frontier prefix; a hub chunk
+    (the first: the power-law graph's hubs have the lowest ids) and a
+    typical chunk (the middle) of layerwise inference, F = 128 and 256."""
+    from salient_plusplus_tpu_torch.models.inference import LocalEngine
+    from salient_plusplus_tpu_torch.ops.segment import gather_rows
+
+    feats = trainer.features
+    V, L = feats.shape[0], batch.num_layers
+    e0 = batch.edges[0]
+    _, T0 = batch.layer_caps(0)
+    res = {"K2 step": measure_k2("train step layer 0 (gsrc)", feats, e0.src,
+                                 e0.dst, e0.count, T0, int(e0.count), power),
+           "K3 step": measure_k3(
+               "train step frontier prefix", feats,
+               batch.n_id[:batch.spec.node_caps[L - 1]].clamp(max=V - 1),
+               power)}
+    g = trainer.graph
+    eng = LocalEngine(g.rowptr, g.col, LAYERWISE_CHUNK, dev)
+    wide = torch.randn(V, 256, generator=torch.Generator(device=dev)
+                       .manual_seed(2), device=dev).to(torch.bfloat16)
+    for where, s in (("hub chunk", 0),
+                     ("typical chunk", V // 2 // LAYERWISE_CHUNK
+                      * LAYERWISE_CHUNK)):
+        n_id, edge, n = eng.chunk(s)
+        for emb in (feats, wide):
+            F = emb.shape[1]
+            res[f"K3 {where} F{F}"] = measure_k3(
+                f"layerwise {where} F={F}", emb, n_id, power)
+            x = gather_rows(emb, n_id)
+            res[f"K2 {where} F{F}"] = measure_k2(
+                f"layerwise {where} F={F}", x, edge.src, edge.dst,
+                edge.count, n, int(edge.count), power)
+    return res
+
+
+def phase_k2_k3_edge_cases(dev):
+    """K2 on K1's edge cases, with src ids into a larger table, real-looking
+    dst values past count and pad src ids that are no row; K3 at odd row
+    widths (the byte loop), n = 0, repeated ids and an integer table."""
+    rng = np.random.default_rng(4)
+    for label, E, F, T, n, pad, hub in EDGE_CASES:
+        if hub:
+            real = np.concatenate([np.zeros(int(n * 0.8)), np.sort(
+                rng.integers(1, T, n - int(n * 0.8)))])
+        else:
+            real = np.sort(rng.integers(0, T, n))
+        dst = np.concatenate([real, np.full(E - n, pad)]).astype(np.int32)
+        dst[n:n + (E - n) // 2] = rng.integers(0, T, (E - n) // 2)
+        N = 3 * T + 5
+        src = rng.integers(0, N, E).astype(np.int32)
+        src[n:] = 2**31 - 1
+        emb = torch.from_numpy(rng.standard_normal((N, F)).astype(
+            np.float32)).to(dev)
+        src_d, dst_d = torch.from_numpy(src).to(dev), torch.from_numpy(
+            dst).to(dev)
+        count = torch.tensor(n, dtype=torch.int32, device=dev)
+        for e in (emb, emb.to(torch.bfloat16)):
+            measure_k2(label, e, src_d, dst_d, count, T, n, "", False)
+        log(f"  K2 edge case {label}: E={E} F={F} T={T} N={N} real={n}, "
+            f"dst past count and pad src garbage: f32 and bf16 match")
+    for N, F, n in ((1000, 128, 512), (300, 256, 128), (50, 12, 400),
+                    (70, 100, 9), (10, 300, 0), (5, 8, 33)):
+        tab = torch.from_numpy(rng.integers(-100, 100, (N, F))).to(dev)
+        idx = torch.from_numpy(rng.integers(0, N, n).astype(np.int32)).to(
+            dev)
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            measure_k3("edge", tab.to(dt), idx, "", False)
+        log(f"  K3 edge case N={N} F={F} n={n}: f32, bf16 and int32 exact")
+
+
 # ---------------------------------------------------------------- phase 4
-def phase_driver(dev, V=100_000, C=32, extra=()):
+def _wrappers():
+    from salient_plusplus_tpu_torch.ops.pallas_aggregate import (
+        fused_gather_segment_sum)
+    from salient_plusplus_tpu_torch.ops.pallas_gather import (
+        pallas_gather_rows)
+    from salient_plusplus_tpu_torch.ops.sorted_segment import (
+        sorted_segment_sum_mxu)
+
+    return {"sorted_segment_sum": sorted_segment_sum_mxu,
+            "fused_gather_segment_sum": fused_gather_segment_sum,
+            "gather_rows": pallas_gather_rows}
+
+
+def driven(label, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (its result, {kernel: launches})."""
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    log(f"  launches in {label}: {counts}")
+    return out, counts
+
+
+def phase_driver(dev, V=100_000, C=32, extra=(), floor=None):
+    """One epoch through the driver CLI on the planted graph; returns the
+    epoch's train steps. ``floor``: the least final_valid (chance by
+    default)."""
     from salient_plusplus_tpu_torch import driver
 
+    floor = 1.0 / C if floor is None else floor
     with tempfile.TemporaryDirectory() as out_root:
         out = driver.main([f"synth:V={V},C={C},deg=12,F=64", "smoke",
                            "--epochs", "1", "--output_root", out_root,
                            *extra], device=dev)
     r = out[0]
-    log(f"  driver: losses={r['losses']} final_valid={r['final_valid']:.4f} "
+    log(f"  driver {' '.join(extra)}: losses={r['losses']} "
+        f"final_valid={r['final_valid']:.4f} "
         f"final_test={r['final_test']:.4f} epoch_s={r['epoch_times']}")
     check(all(np.isfinite(r["losses"])), "driver losses are not finite")
-    check(r["final_valid"] > 1.0 / C,
-          f"final_valid {r['final_valid']} is not above chance 1/{C}")
+    check(r["final_valid"] > floor,
+          f"final_valid {r['final_valid']} is not above {floor}")
     return -(-int(0.6 * V) // 1024)  # train steps of the epoch
+
+
+def phase_drivers(dev, V=100_000, C=32):
+    """Slice 1's path (batchwise final test) and slice 2's (layerwise), each
+    with the counts read around it, then the other four models."""
+    steps, c1 = driven("driver (batchwise)", lambda: phase_driver(dev, V, C))
+    log(f"  ({steps} train steps; K1 >= 4, K2 >= 1, K3 >= 1 per step "
+        f"required)")
+    check(c1["sorted_segment_sum"] >= 4 * steps, "K1 launched too few times")
+    check(c1["fused_gather_segment_sum"] >= steps, "K2 launched too few times")
+    check(c1["gather_rows"] >= steps, "K3 launched too few times")
+    lw = ("--final_test_mode", "layerwise")
+    _, c2 = driven("driver (layerwise)",
+                   lambda: phase_driver(dev, V, C, lw, floor=0.5))
+    per_layer = -(-V // LAYERWISE_CHUNK)
+    log(f"  ({steps} train steps + {per_layer} chunks x 3 layers; K1 >= 4 "
+        f"per step, K2 and K3 >= 1 per step and 1 per chunk and layer "
+        f"required)")
+    check(c2["sorted_segment_sum"] >= 4 * steps, "K1 launched too few times")
+    for k in ("fused_gather_segment_sum", "gather_rows"):
+        check(c2[k] >= steps + 3 * per_layer, f"{k} launched too few times")
+    small = ("--num_layers", "2", "--hidden_features", "128",
+             "--train_fanouts", "10,5", "--batchwise_test_fanouts", "20,20",
+             "--final_test_fanouts", "20,20", *lw)
+    for name in ("SAGEClassic", "GIN", "JKNet", "SAGEResInception"):
+        _, c = driven(f"driver {name}", lambda: phase_driver(
+            dev, V, C, ("--model_name", name, *small), floor=2.0 / C))
+        check(min(c.values()) > 0, f"{name} bypassed a kernel: {c}")
+    return c2
 
 
 # ---------------------------------------------------------------- phase 5
@@ -249,8 +504,6 @@ def bench_trainer(dev, num_nodes=1_000_000):
 
 
 def phase_bench(trainer, dev, power, warmup=20, steps=40):
-    from salient_plusplus_tpu_torch.ops.sorted_segment import (
-        sorted_segment_sum_mxu)
     from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
 
     ts = trainer.train_sampler
@@ -265,13 +518,14 @@ def phase_bench(trainer, dev, power, warmup=20, steps=40):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     e0, b0, s0 = feeder.edges_fed, feeder.bytes_fed, feeder.starved_dur
-    n0 = sorted_segment_sum_mxu.launches
+    n0 = {k: w.launches for k, w in _wrappers().items()}
     t0 = time.perf_counter()
     losses = [trainer.run_step(next(feeder)) for _ in range(steps)]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = sorted_segment_sum_mxu.launches - n0
+    per_step = {k: (w.launches - n0[k]) / steps
+                for k, w in _wrappers().items()}
     check(bool(torch.isfinite(torch.stack(losses)).all()),
           "bench losses are not finite")
     # fed counters run ahead of the steps by the prefetch depth; over a
@@ -283,22 +537,24 @@ def phase_bench(trainer, dev, power, warmup=20, steps=40):
                tight_frac=st.tight_batches / max(st.batches, 1),
                h2d_bytes_per_batch=(feeder.bytes_fed - b0) / steps,
                starved_s=feeder.starved_dur - s0,
-               k1_launches_per_step=launches / steps,
+               launches_per_step=per_step,
                max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None))
     log("  bench: " + json.dumps(res) + f"  [{power}]")
     if dev.type == "cuda":
-        profile_window(trainer, feeder, power)
+        profile_window(lambda: trainer.run_step(next(feeder)), 10, "steps",
+                       power)
     it.close()
     return res
 
 
-def profile_window(trainer, feeder, power, steps=10):
-    """Where a bench-shape step's device time goes: ``steps`` further steps
-    under torch.profiler. Device intervals (kernels and copies, on every
-    stream) are merged into the busy time; the window runs from the first
-    one's start to the last one's end, so idle = 1 - busy / window. The
-    profiler slows the host, so the idle share is an upper bound."""
+def profile_window(work, steps, unit, power):
+    """Where the device time of ``steps`` calls of ``work`` (a bench-shape
+    step, a layerwise layer) goes, under torch.profiler. Device intervals
+    (kernels and copies, on every stream) are merged into the busy time;
+    the window runs from the first one's start to the last one's end, so
+    idle = 1 - busy / window. The profiler slows the host, so the idle
+    share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,7 +563,7 @@ def profile_window(trainer, feeder, power, steps=10):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            trainer.run_step(next(feeder))
+            work()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     ivs, by_name = [], {}
@@ -318,7 +574,7 @@ def profile_window(trainer, feeder, power, steps=10):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
     if not ivs:
-        log(f"  profile: no device time recorded ({steps} steps, "
+        log(f"  profile: no device time recorded ({steps} {unit}, "
             f"{wall_ms:.1f} ms on the host clock)")
         return
     ivs.sort()
@@ -332,14 +588,68 @@ def profile_window(trainer, feeder, power, steps=10):
     busy += e0 - s0
     window = max(e for _, e in ivs) - ivs[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log(f"  profile ({steps} steps, host clock {wall_ms / steps:.3f} ms/step "
-        f"under the profiler): device window {window / steps / 1e3:.3f} "
-        f"ms/step, busy {busy / steps / 1e3:.3f} ms/step, idle share "
-        f"{1 - busy / window:.3f}, {len(ivs) / steps:.0f} device events/step"
-        f"  [{power}]")
+    u = unit[:-1]
+    log(f"  profile ({steps} {unit}, host clock {wall_ms / steps:.3f} "
+        f"ms/{u} under the profiler): device window "
+        f"{window / steps / 1e3:.3f} ms/{u}, busy {busy / steps / 1e3:.3f} "
+        f"ms/{u}, idle share {1 - busy / window:.3f}, "
+        f"{len(ivs) / steps:.0f} device events/{u}  [{power}]")
     for name, us in top:
-        log(f"    {us / steps / 1e3:8.4f} ms/step  {us / busy:6.1%}  "
+        log(f"    {us / steps / 1e3:8.4f} ms/{u}  {us / busy:6.1%}  "
             f"{name[:100]}")
+
+
+def phase_layerwise_bench(trainer, dev, power):
+    """Layerwise inference of the bench trainer's SAGE (full width: 128 in,
+    256 hidden, 47 out, 3 layers, bf16) over the whole 1M-node graph:
+    seconds per layer, nodes/s, launches (one K2 and one K3 per chunk and
+    layer), peak device memory; then one layer under torch.profiler."""
+    from salient_plusplus_tpu_torch.models.inference import (
+        LocalEngine, run_layerwise_zoo)
+
+    class TimedEngine(LocalEngine):
+        def propagate(self, core, emb, feat_out):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().propagate(core, emb, feat_out)
+            torch.cuda.synchronize()
+            self.layer_s.append(time.perf_counter() - t0)
+            self.calls.append((core, emb, feat_out))
+            return out
+
+    g, model = trainer.graph, trainer.state.model
+    t0 = time.perf_counter()
+    eng = TimedEngine(g.rowptr, g.col, LAYERWISE_CHUNK, dev)
+    eng.layer_s, eng.calls = [], []
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logp, counts = driven("layerwise inference (bench graph)",
+                          lambda: run_layerwise_zoo("SAGE", model,
+                                                    trainer.features, eng))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    V, L = g.num_nodes, model.num_layers
+    chunks = -(-V // LAYERWISE_CHUNK)
+    check(logp.shape == (V, g.num_classes), f"layerwise shape {logp.shape}")
+    check(bool(torch.isfinite(logp).all()), "layerwise output not finite")
+    for k in ("fused_gather_segment_sum", "gather_rows"):
+        check(counts[k] == chunks * L, f"{k}: {counts[k]} launches, "
+              f"{chunks} chunks x {L} layers expected")
+    res = dict(V=V, chunks_per_layer=chunks, edge_cap=eng.spec.edge_caps[0],
+               engine_setup_s=setup_s, layer_s=eng.layer_s, total_s=total_s,
+               nodes_per_s=V / total_s, launches=counts,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    log("  layerwise bench: " + json.dumps(res) + f"  [{power}]")
+    core, emb, feat_out = eng.calls[1]   # hidden to hidden, 256 wide
+    model.eval()
+    with torch.no_grad():
+        profile_window(lambda: LocalEngine.propagate(eng, core, emb,
+                                                     feat_out),
+                       1, "layers", power)
+    model.train()
+    return res
 
 
 # ---------------------------------------------------------------- phase 6
@@ -394,13 +704,43 @@ def phase_card_vs_cpu(dev, V=100_000, C=32):
         check(rel < 5e-2, f"gradient {k} differs: rel err {rel}")
 
 
+def phase_layerwise_card_vs_cpu(dev, V=20_000):
+    """Layerwise inference of SAGE at full width (128 in, 256 hidden, 47
+    out, 3 layers) on a 20k-node power-law graph, on the card (K2, K3) and
+    on the CPU (plain versions), from the same weights. float32 with TF32
+    off, so both compute the same products and differ only in summation
+    order: each log-probability may differ by 1e-3 at most."""
+    from salient_plusplus_tpu_torch.data import synthetic
+    from salient_plusplus_tpu_torch.data.dataset import pad_feature_dim
+    from salient_plusplus_tpu_torch.models import make_model
+    from salient_plusplus_tpu_torch.models.inference import (
+        layerwise_inference)
+
+    g = synthetic.powerlaw_graph(name="lw-cmp", num_nodes=V, avg_degree=15,
+                                 num_features=100, num_classes=47, seed=1)
+    x = torch.from_numpy(pad_feature_dim(np.asarray(g.x, np.float32)))
+    model = make_model("SAGE", x.shape[1], 256, 47, 3, dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        m = make_model("SAGE", x.shape[1], 256, 47, 3, dtype=torch.float32)
+        m.load_state_dict(sd)
+        out[d.type] = layerwise_inference("SAGE", m.to(d), g.rowptr, g.col,
+                                          x.to(d)).cpu()
+    err = float((out["cpu"] - out[dev.type]).abs().max())
+    agree = float((out["cpu"].argmax(-1) == out[dev.type].argmax(-1))
+                  .float().mean())
+    log(f"  layerwise card vs cpu (V={V}, f32): max |d logp| {err:.3g}, "
+        f"argmax agreement {agree:.6f}")
+    check(err <= 1e-3, f"layerwise card vs cpu: max error {err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from salient_plusplus_tpu_torch.ops.sorted_segment import (
-        sorted_segment_sum_mxu)
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -423,39 +763,54 @@ def main() -> int:
     log(f"  bench trainer built in {time.perf_counter() - t:.1f} s: "
         f"spec {trainer.train_spec} tight {trainer.train_tight}")
     t = time.perf_counter()
-    cases = main_path_cases(trainer, dev)
-    tot, max_err, bound_by = phase_kernel_vs_plain(cases, dev, power)
-    log(f"  per train step ({len(cases)} calls): kernel_ms={tot['ms']:.4f} "
+    batch = bench_batch(trainer, dev)
+    tot, k1_err, bound_by = phase_kernel_vs_plain(k1_cases(trainer, batch),
+                                                  dev, power)
+    log(f"  K1 per train step (4 calls): kernel_ms={tot['ms']:.4f} "
         f"plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
         f"bound_us={tot['bound_ms'] * 1e3:.2f}  [{power}]")
     phase_edge_cases(dev)
+    k23 = phase_k2_k3_main(trainer, batch, dev, power)
+    phase_k2_k3_edge_cases(dev)
+    del batch
     log(f"phase 3 kernel vs plain: {time.perf_counter() - t:.1f} s")
-    # phase 4: the main path through the driver CLI
+    # phase 4: the main paths through the driver CLI
     t = time.perf_counter()
-    sorted_segment_sum_mxu.launches = 0
-    train_steps = phase_driver(dev)
-    launches = sorted_segment_sum_mxu.launches
-    log(f"  K1 launches in the driver run: {launches} "
-        f"({train_steps} train steps; >= 5 per step required)")
-    check(launches >= 5 * train_steps, "K1 launched too few times")
+    launches = phase_drivers(dev)
     log(f"phase 4 driver: {time.perf_counter() - t:.1f} s")
     # phase 5
     t = time.perf_counter()
     res = phase_bench(trainer, dev, power)
-    check(res["k1_launches_per_step"] >= 5, "bench steps bypassed K1")
+    steps = res["launches_per_step"]
+    check(steps["sorted_segment_sum"] == 4
+          and steps["fused_gather_segment_sum"] == 1
+          and steps["gather_rows"] == 1,
+          f"bench step launches {steps}: K1 4, K2 1, K3 1 expected")
+    phase_layerwise_bench(trainer, dev, power)
     del trainer
     log(f"phase 5 bench: {time.perf_counter() - t:.1f} s")
     # phase 6
     t = time.perf_counter()
     phase_card_vs_cpu(dev)
+    phase_layerwise_card_vs_cpu(dev)
     log(f"phase 6 card vs cpu: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
+    # per kernel: its main-path launches (slice 2's driver run) and its
+    # times at one train step's shapes (K1: its 4 calls summed)
+    timed = {"sorted_segment_sum": dict(tot, err=k1_err, bound_by=bound_by),
+             "fused_gather_segment_sum": dict(k23["K2 step"],
+                                              bound_by="bytes"),
+             "gather_rows": dict(k23["K3 step"], bound_by="bytes")}
+    errs = {"fused_gather_segment_sum": max(
+        v["err"] for k, v in k23.items() if k.startswith("K2")),
+        "gather_rows": 0.0, "sorted_segment_sum": k1_err}
     print(json.dumps({"kernels": [{
-        "name": "sorted_segment_sum", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": tot["ms"],
-        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": bound_by, "library_ms": tot["library_ms"]}]}))
+        "name": k, "route": "cuda", "source": KERNELS[k][0],
+        "replaces": KERNELS[k][1], "launches": launches[k],
+        "max_abs_err": errs[k], "ms": timed[k]["ms"],
+        "plain_ms": timed[k]["plain_ms"], "bound_ms": timed[k]["bound_ms"],
+        "bound_by": timed[k]["bound_by"],
+        "library_ms": timed[k]["library_ms"]} for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

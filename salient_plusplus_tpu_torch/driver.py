@@ -5,8 +5,9 @@ Usage:
 
 <dataset> is a GraphData directory name under --dataset_root, or a
 synthetic spec "synth:V=100000,C=32,deg=12,F=64". The flags are the JAX
-driver's (every RunConfig field). This slice runs single-card training on
-a CUDA device; ``main(argv, device="cpu")`` runs it on the CPU. What later
+driver's (every RunConfig field). The port runs single-card training and
+a batchwise or layerwise (``--final_test_mode layerwise``) final test on a
+CUDA device; ``main(argv, device="cpu")`` runs it on the CPU. What later
 slices bring raises NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -62,10 +63,6 @@ def _reject_unported(cfg) -> None:
         raise NotImplementedError(
             "hbm_fraction < 1 (host cold tier): ROADMAP.md Queue 1 item 14 "
             "(slice 3)")
-    if cfg.final_test_mode == "layerwise":
-        raise NotImplementedError(
-            "final_test_mode=layerwise: ROADMAP.md Queue 1 item 13 "
-            "(slice 2)")
 
 
 def run_computation(cfg, graph, job_dir: str, logger, device=None):

@@ -1,14 +1,15 @@
 """Build the port's native libraries at first use.
 
-Two shared libraries, both bound with ``ctypes`` through a plain C
-interface:
+Shared libraries bound with ``ctypes`` through a plain C interface:
 
 - ``sampler_lib_path()``: the host C++ sampler (``native/sampler.cpp``, a
   copy of the JAX package's), built with ``g++``;
-- ``kernel_lib_path()``: the CUDA kernels (``csrc/*.cu``), built with
-  ``nvcc`` for ``sm_90a``. Only a CUDA launch asks for it.
+- ``kernel_lib_path(name)``: one library per CUDA kernel source
+  (``csrc/{name}.cu``), built with ``nvcc`` for ``sm_90a``, so the kernels
+  build in parallel. Only a CUDA launch asks for one; ``launch_kernel``
+  calls its C entry point ``sptpu_{name}`` on the current stream.
 
-Both land in ``salient_plusplus_tpu_torch/_build/`` (listed in .gitignore),
+All land in ``salient_plusplus_tpu_torch/_build/`` (listed in .gitignore),
 named by a hash of their source and command, so an edited source rebuilds
 and an unchanged one is reused. A file lock serialises concurrent builds
 (test workers build the sampler too) and the library is moved into place
@@ -17,6 +18,7 @@ atomically, so no process ever loads a half-written file.
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
@@ -24,12 +26,17 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SAMPLER_SRC = os.path.join(_PKG_DIR, "native", "sampler.cpp")
-KERNEL_SRCS = (os.path.join(_PKG_DIR, "csrc", "sorted_segment_sum.cu"),)
+KERNELS = ("sorted_segment_sum", "gather_rows", "fused_gather_segment_sum")
 # one lock per library, so the sampler and the kernels build in parallel
-_locks = {"sptpu": threading.Lock(), "sptpu_kernels": threading.Lock()}
+_locks = {stem: threading.Lock()
+          for stem in ("sptpu", *(f"sptpu_{k}" for k in KERNELS))}
+_fns = {}
+_fns_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -85,11 +92,31 @@ def sampler_lib_path() -> str:
         _SAMPLER_SRC])
 
 
-def kernel_lib_path() -> str:
-    return _build("sptpu_kernels", KERNEL_SRCS, lambda out: [
+def kernel_lib_path(name: str) -> str:
+    src = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+    return _build(f"sptpu_{name}", (src,), lambda out: [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", out, *KERNEL_SRCS])
+        "-o", out, src])
+
+
+def launch_kernel(name: str, argtypes, device: torch.device, *args) -> None:
+    """Call ``sptpu_{name}(*args, stream)`` of ``csrc/{name}.cu`` on
+    ``device``'s current stream. ``argtypes`` types ``args`` (pointers as
+    ``c_void_p``); the C function returns ``cudaGetLastError()`` after its
+    launch, and anything but 0 raises."""
+    with _fns_lock:
+        fn = _fns.get(name)
+        if fn is None:
+            fn = getattr(ctypes.CDLL(kernel_lib_path(name)), f"sptpu_{name}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            _fns[name] = fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def build_log(lib_path: str) -> str:

@@ -1,3 +1,7 @@
+from .pallas_aggregate import (
+    fused_gather_segment_sum, fused_segment_sum_op, maybe_fused_segment_sum,
+)
+from .pallas_gather import pallas_gather_rows
 from .segment import (
     gather_rows, masked_segment_mean, masked_segment_sum,
     segment_degrees_sorted, valid_mask,
@@ -5,6 +9,8 @@ from .segment import (
 from .sorted_segment import sorted_segment_sum, sorted_segment_sum_mxu, spmm_agg
 
 __all__ = [
+    "fused_gather_segment_sum", "fused_segment_sum_op",
+    "maybe_fused_segment_sum", "pallas_gather_rows",
     "gather_rows", "masked_segment_mean", "masked_segment_sum",
     "segment_degrees_sorted", "valid_mask",
     "sorted_segment_sum", "sorted_segment_sum_mxu", "spmm_agg",

@@ -5,12 +5,15 @@ A hop's padded COO (EdgeBlock) is reduced target-wise with the padding
 masked by an iota-vs-count comparison; padded edges are routed to an extra
 row ``num_segments`` that is dropped. These are the oracles the kernel path
 (ops/sorted_segment.py) is checked against, and the aggregation of layers
-that have no kernel yet.
+that have no kernel yet. ``gather_rows`` dispatches to the row-gather
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .pallas_gather import pallas_gather_rows
 
 
 def valid_mask(length: int, count, device=None) -> torch.Tensor:
@@ -21,14 +24,18 @@ def valid_mask(length: int, count, device=None) -> torch.Tensor:
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather ``x[idx]`` (the JAX package's ``jnp.take``; its Pallas
-    row-gather kernel is off by default there and not ported yet)."""
-    return x.index_select(0, idx)
+    """Row gather ``x[idx]`` of a 2-d table by int32 ids: the row-gather
+    kernel (``ops/pallas_gather.py``) on a CUDA tensor, its plain version
+    on a CPU tensor (the JAX package's ``gather_rows_auto``)."""
+    return pallas_gather_rows(x, idx)
 
 
 def _safe_dst(dst: torch.Tensor, count, num_segments: int) -> torch.Tensor:
-    mask = valid_mask(dst.shape[0], count, dst.device)
-    return torch.where(mask, dst.long(), num_segments)
+    """int64 dst with every dropped edge (``e >= count`` or ``dst[e] >=
+    num_segments``) routed to the extra row ``num_segments``."""
+    keep = (valid_mask(dst.shape[0], count, dst.device)
+            & (dst < num_segments))
+    return torch.where(keep, dst.long(), num_segments)
 
 
 def masked_segment_sum(values: torch.Tensor, dst: torch.Tensor, count,

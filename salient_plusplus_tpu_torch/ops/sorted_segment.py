@@ -19,34 +19,22 @@ never scatters:
           out = segsum(msg, dst)  (kernel, dst-sorted)
     bwd:  h   = (d_out/deg)[mdst] (row gather)
           d_x = segsum(h, msrc)   (kernel, src-sorted mirror)
+
+A hop without a mirror runs the fused gather + segment sum instead
+(``ops/pallas_aggregate.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from ..native.build import kernel_lib_path
+from ..native.build import launch_kernel
+from .pallas_aggregate import _DTYPE_CODE, fused_segment_sum_op
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _kernel_lib():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(kernel_lib_path())
-            fn = lib.sptpu_sorted_segment_sum
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_void_p, ctypes.c_void_p]
-            _LIB = lib
-        return _LIB
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
 
 
 def _sorted_segment_sum_plain(vals: torch.Tensor, ids: torch.Tensor,
@@ -86,14 +74,9 @@ def sorted_segment_sum_mxu(vals: torch.Tensor, ids: torch.Tensor,
                       device=vals.device)
     if num_segments == 0 or F == 0:
         return out
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    with torch.cuda.device(vals.device):
-        rc = _kernel_lib().sptpu_sorted_segment_sum(
-            vals.data_ptr(), _DTYPE_CODE[vals.dtype], ids.data_ptr(), E,
-            num_segments, F, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"sorted_segment_sum kernel launch failed: "
-                           f"cudaError {rc}")
+    launch_kernel("sorted_segment_sum", _ARGTYPES, vals.device,
+                  vals.data_ptr(), _DTYPE_CODE[vals.dtype], ids.data_ptr(), E,
+                  num_segments, F, out.data_ptr())
     sorted_segment_sum_mxu.launches += 1
     return out
 
@@ -109,9 +92,9 @@ def _sorted_degrees(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.diff(torch.searchsorted(ids, bounds, out_int32=True))
 
 
-def _spmm_fwd(x, src, dst, out_cap: int, mean: bool):
-    msg = x.index_select(0, src)
-    s = sorted_segment_sum_mxu(msg, dst, out_cap)
+def _spmm_finish(s, x, dst, out_cap: int, mean: bool):
+    """Mean division (by the sorted in-degrees) and the cast to x.dtype of
+    a hop's f32 segment sum ``s``."""
     deg = None
     if mean:
         deg = _sorted_degrees(dst, out_cap).clamp_min(1).to(torch.float32)
@@ -126,7 +109,8 @@ class _SpmmAgg(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, src, dst, msrc, mdst, out_cap: int, mean: bool):
-        out, deg = _spmm_fwd(x, src, dst, out_cap, mean)
+        s = sorted_segment_sum_mxu(x.index_select(0, src), dst, out_cap)
+        out, deg = _spmm_finish(s, x, dst, out_cap, mean)
         ctx.mean = mean
         ctx.in_cap = x.shape[0]
         ctx.x_dtype = x.dtype
@@ -144,39 +128,15 @@ class _SpmmAgg(torch.autograd.Function):
         return d_x, None, None, None, None, None, None
 
 
-class _SpmmAggNoMirror(torch.autograd.Function):
-    """Aggregation of a hop without a mirror (the outermost one). Its
-    backward, reached only by models that differentiate a projection of
-    the raw input, is a plain ``index_add_`` (the JAX package's is an XLA
-    scatter, not a Pallas kernel)."""
-
-    @staticmethod
-    def forward(ctx, x, src, dst, count, out_cap: int, mean: bool):
-        out, deg = _spmm_fwd(x, src, dst, out_cap, mean)
-        ctx.mean = mean
-        ctx.in_cap = x.shape[0]
-        ctx.x_dtype = x.dtype
-        ctx.save_for_backward(src, dst, count,
-                              *(() if deg is None else (deg,)))
-        return out
-
-    @staticmethod
-    def backward(ctx, d_out):
-        src, dst, count = ctx.saved_tensors[:3]
-        g = d_out.to(torch.float32)
-        if ctx.mean:
-            g = g / ctx.saved_tensors[3][:, None]
-        mask = torch.arange(src.shape[0], device=src.device) < count
-        d_msg = g.to(ctx.x_dtype).index_select(
-            0, torch.where(mask, dst, 0))
-        safe_src = torch.where(mask, src.long(), ctx.in_cap)
-        d_x = d_msg.new_zeros((ctx.in_cap + 1, d_msg.shape[1]))
-        d_x.index_add_(0, safe_src, d_msg)
-        return d_x[:ctx.in_cap], None, None, None, None, None
-
-
 def _spmm_agg_nomirror(out_cap: int, mean: bool, x, src, dst, count):
-    return _SpmmAggNoMirror.apply(x, src, dst, count, out_cap, mean)
+    """Aggregation of a hop without a mirror (the outermost one, and every
+    hop of layerwise inference): the fused gather + segment sum (K2), which
+    reads ``x[src]`` without materialising it. Its backward, reached only
+    by models that differentiate a projection of the raw input, is the
+    op's plain ``index_add_`` (the JAX package's is an XLA scatter, not a
+    Pallas kernel), through the mean division and the cast."""
+    s = fused_segment_sum_op(x, src, dst, count, out_cap)
+    return _spmm_finish(s, x, dst, out_cap, mean)[0]
 
 
 class _SortedSegmentSum(torch.autograd.Function):

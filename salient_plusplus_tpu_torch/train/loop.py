@@ -2,8 +2,9 @@
 (counterpart of the JAX package's ``train/loop.py``).
 
 This slice has the all-in-memory path: the whole feature table sits on
-the device in bf16. The host cold tier (``hbm_fraction < 1``), checkpoints
-and layerwise inference come in later slices (ROADMAP.md) and raise here.
+the device in bf16, and the final test is batchwise or layerwise. The host
+cold tier (``hbm_fraction < 1``) and checkpoints come in later slices
+(ROADMAP.md) and raise here.
 """
 
 from __future__ import annotations
@@ -316,8 +317,30 @@ class Trainer:
         return acc
 
     def evaluate_layerwise(self, splits=("valid", "test")):
-        raise NotImplementedError(
-            "layerwise inference: ROADMAP.md Queue 1 item 13 (slice 2)")
+        """Exact full-graph accuracy via layerwise inference
+        (models/inference.py): one pass computes every node's
+        representation, so all splits score from the same embeddings. A
+        model the JAX package does not serve layerwise (ARMA) is scored
+        batchwise instead, as there."""
+        from ..models.inference import UNSERVED, layerwise_inference
+
+        name = self.cfg.model_name
+        if name in UNSERVED:
+            self.logger.log("LAYERWISE_UNSUPPORTED_FALLBACK", name)
+            return {s: self.evaluate(s) for s in splits}
+        logp = layerwise_inference(
+            name, self.state.model, self.graph.rowptr, self.graph.col,
+            self.features, chunk=self.cfg.inference_chunk)
+        pred = logp.argmax(-1)
+        y = torch.from_numpy(np.asarray(self.graph.y, np.int64)).to(
+            self.device)
+        out = {}
+        for s in splits:
+            idx = torch.from_numpy(np.asarray(self.graph.split_idx[s],
+                                              np.int64)).to(self.device)
+            out[s] = float((pred[idx] == y[idx]).to(torch.float32).mean())
+            self.logger.log("layerwise_acc", s, out[s])
+        return out
 
     # --- run_trial_impl hooks -----------------------------------------
     def _trial_reset(self, trial: int):
@@ -331,12 +354,9 @@ class Trainer:
 def run_trial_impl(trainer, trial: int = 0) -> TrialResult:
     """THE trial loop: epochs, periodic validation, best-snapshot
     tracking (in memory) and the final test scored from the best
-    snapshot. Checkpoint IO waits for ROADMAP.md Queue 1 item 8."""
+    snapshot, batchwise or layerwise (``final_test_mode``). Checkpoint IO
+    waits for ROADMAP.md Queue 1 item 8."""
     cfg = trainer.cfg
-    if cfg.final_test_mode == "layerwise":
-        raise NotImplementedError(
-            "final_test_mode=layerwise: ROADMAP.md Queue 1 item 13 "
-            "(slice 2)")
     trainer._trial_reset(trial)
     res = TrialResult()
     best_state = None
@@ -363,8 +383,13 @@ def run_trial_impl(trainer, trial: int = 0) -> TrialResult:
     if best_state is not None:
         # score the best-validation model, not the last epoch
         trainer.state.model.load_state_dict(best_state)
-    res.final_valid_acc = trainer.evaluate("valid")
-    res.final_test_acc = trainer.evaluate("test")
+    if cfg.final_test_mode == "layerwise":
+        accs = trainer.evaluate_layerwise(("valid", "test"))
+        res.final_valid_acc = accs["valid"]
+        res.final_test_acc = accs["test"]
+    else:
+        res.final_valid_acc = trainer.evaluate("valid")
+        res.final_test_acc = trainer.evaluate("test")
     trainer.logger.log("trial_result", trial, res.best_epoch,
                        res.final_valid_acc, res.final_test_acc)
     return res

@@ -11,18 +11,18 @@ import dataclasses
 
 import torch
 
-from ..ops.segment import valid_mask
+from ..ops.segment import gather_rows, valid_mask
 from ..sampling.batch import PaddedBatch
 from .state import TrainState
 
 
 def gather_features(features: torch.Tensor,
                     batch: PaddedBatch) -> torch.Tensor:
-    """All-in-memory frontier gather ``features[n_id]``. ``n_id`` is
-    clamped, so no index is ever out of range. The host cold tier waits
-    for slice 3."""
+    """All-in-memory frontier gather ``features[n_id]`` (the row-gather
+    kernel on the card). ``n_id`` is clamped, so no index is ever out of
+    range. The host cold tier waits for slice 3."""
     idx = batch.n_id.clamp(max=features.shape[0] - 1)
-    return features.index_select(0, idx)
+    return gather_rows(features, idx)
 
 
 def decode_batch(batch: PaddedBatch) -> PaddedBatch:
@@ -44,7 +44,7 @@ def _x_and_extra(features: torch.Tensor, batch: PaddedBatch,
         L = batch.spec.num_hops
         pref_cap = batch.spec.node_caps[L - 1]  # n_id is already prefix-only
         idx = batch.n_id[:pref_cap].clamp(max=features.shape[0] - 1)
-        return features.index_select(0, idx), {"features": features}
+        return gather_rows(features, idx), {"features": features}
     return gather_features(features, batch), {}
 
 

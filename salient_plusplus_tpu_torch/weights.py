@@ -1,10 +1,18 @@
-"""Carry weights between the JAX package's flax params and the port.
+"""Carry weights between the JAX package's flax variables and the port.
 
-The flax params are a nested dict of numpy arrays (``jax.tree_util.
-tree_map(np.asarray, params)`` gives one): ``params["conv{i}"]["lin_l"|
-"lin_r"]["kernel"]`` of shape [in, out] is the port's ``conv{i}.lin_l.
-weight`` of shape [out, in]; a bias carries as it is. Nothing of JAX is
-imported here.
+The flax variables are nested dicts of numpy arrays (``jax.tree_util.
+tree_map(np.asarray, variables["params"])`` gives one), and the port's
+modules carry the flax names, so a path maps to a state_dict key:
+
+- params: a Dense ``kernel`` [in, out] is the port's ``weight`` [out, in];
+  a ``bias`` and a BatchNorm ``scale`` carry as they are
+  (``params["conv0"]["lin_l"]["kernel"]`` is ``conv0.lin_l.weight``);
+- batch_stats: a BatchNorm's running ``mean`` and ``var`` are the port's
+  buffers of the same names (``batch_stats["conv0"]["bn"]["mean"]`` is
+  ``conv0.bn.mean``).
+
+Load both into a model with ``model.load_state_dict({**params_from_jax(p),
+**batch_stats_from_jax(s)})``. Nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+_STATS = ("mean", "var")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -23,8 +33,23 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+def _nest(pairs) -> Dict:
+    out: Dict = {}
+    for path, a in pairs:
+        *mod, leaf = path
+        node = out
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return out
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
 def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested numpy flax params -> a state_dict for the port's model."""
+    """Nested numpy flax params -> state_dict entries of the port's model."""
     out = {}
     for path, v in _flatten(params_np):
         a = np.asarray(v, np.float32)
@@ -32,8 +57,8 @@ def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             out[".".join(mod + ["weight"])] = torch.from_numpy(
                 np.ascontiguousarray(a.T))
-        elif leaf == "bias":
-            out[".".join(mod + ["bias"])] = torch.from_numpy(a.copy())
+        elif leaf in ("bias", "scale"):
+            out[".".join(path)] = torch.from_numpy(a.copy())
         else:
             raise KeyError(f"no port counterpart for flax param "
                            f"{'/'.join(path)}")
@@ -41,18 +66,36 @@ def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's state_dict -> nested numpy flax params."""
-    out: Dict = {}
+    """The port's state_dict -> nested numpy flax params (the running
+    statistics go to ``batch_stats_to_jax``)."""
+    pairs = []
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
-        a = t.detach().to("cpu", torch.float32).numpy()
-        node = out
-        for m in mod:
-            node = node.setdefault(m, {})
+        if leaf in _STATS:
+            continue
         if leaf == "weight":
-            node["kernel"] = np.ascontiguousarray(a.T)
-        elif leaf == "bias":
-            node["bias"] = a.copy()
+            pairs.append((mod + ["kernel"], np.ascontiguousarray(_f32(t).T)))
+        elif leaf in ("bias", "scale"):
+            pairs.append((mod + [leaf], _f32(t).copy()))
         else:
             raise KeyError(f"no flax counterpart for {key}")
+    return _nest(pairs)
+
+
+def batch_stats_from_jax(stats_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested numpy flax batch_stats -> the port's BatchNorm buffers."""
+    out = {}
+    for path, v in _flatten(stats_np):
+        if path[-1] not in _STATS:
+            raise KeyError(f"no port counterpart for flax batch stat "
+                           f"{'/'.join(path)}")
+        out[".".join(path)] = torch.from_numpy(np.asarray(v, np.float32)
+                                               .copy())
     return out
+
+
+def batch_stats_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's BatchNorm buffers -> nested numpy flax batch_stats."""
+    return _nest((key.split("."), _f32(t).copy())
+                 for key, t in state_dict.items()
+                 if key.split(".")[-1] in _STATS)

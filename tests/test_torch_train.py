@@ -148,7 +148,7 @@ def test_driver_cli_runs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--distribute_data", "true"], ["--hbm_fraction", "0.5"],
-    ["--final_test_mode", "layerwise"],
+    ["--model_name", "GCN"],
     ["--execution_mode", "communication_simulation"],
     ["--do_test_run", "0"], ["--model_name", "GAT"],
 ])
