@@ -12,8 +12,13 @@ K1 sorted segment sum, K2 fused gather + segment sum and K3 row gather
 2. build: the host sampler (g++) and each CUDA kernel (nvcc, sm_90a), all
    started together, with nvcc's register / shared-memory / spill report;
 3. kernel vs plain, each kernel against its plain torch version at the main
-   paths' shapes and at edge cases, bf16 and f32 (K3 also an integer
-   table); times kernel, plain version, bound and library yardstick:
+   paths' shapes and at edge cases, bf16 and f32 (f32 K1/K2 results
+   against the float64 sum; K3 also an integer table; K1/K2 also on
+   misaligned bf16 views and, for K2, count inside a slice, 0, past E and
+   below 0); K1 at the step's layer-1 backward and K2 at the hub chunk
+   called three times, bit-identical; times kernel, plain version, bound
+   and library yardstick, with each call's share of its bound and its
+   ratio to the library time:
    K1 at every K1 call of one bench-shape train step (the mirrored hops,
    forward and backward); K2 at the step's layer 0 (global src ids into
    the 1M-row table) and K3 at its frontier prefix; K2 and K3 at a hub
@@ -66,14 +71,20 @@ LAYERWISE_CHUNK = 4096   # RunConfig.inference_chunk's default
 BENCH_CFG = dict(train_batch_size=1024, train_fanouts=[15, 10, 5],
                  hidden_features=256, num_layers=3, lr=0.003,
                  model_name="SAGE", max_batches_in_flight=8)
-# the edge cases of K1 and K2: (label, E, F, T, real edges, pad id, hub)
+# the edge cases of K1 and K2: (label, E, F, T, real edges, pad id, kind);
+# kind as in real_ids
 EDGE_CASES = [
-    ("F64", 1024, 64, 128, 900, 128, False),
-    ("F100", 2048, 100, 384, 1737, 384, False),
-    ("F8 no real edges", 512, 8, 128, 0, 128, False),
-    ("F12 pads above T", 1024, 12, 256, 800, 640, False),
-    ("hub + empty segments", 4096, 16, 256, 3000, 256, True),
-    ("F300 two passes", 20000, 300, 5000, 19000, 5000, False),
+    ("F64", 1024, 64, 128, 900, 128, "uniform"),
+    ("F100", 2048, 100, 384, 1737, 384, "uniform"),
+    ("F8 no real edges", 512, 8, 128, 0, 128, "uniform"),
+    ("F12 pads above T", 1024, 12, 256, 800, 640, "uniform"),
+    ("hub + empty segments", 4096, 16, 256, 3000, 256, "hub"),
+    ("F300 two passes", 20000, 300, 5000, 19000, 5000, "uniform"),
+    ("one segment over ~4700 slices", 300_000, 256, 64, 299_000, 64, "one"),
+    ("segments of one slice", 5120, 128, 80, 5120, 80, ("blocks", 64)),
+    ("segments of two slices", 5120, 256, 40, 5113, 40, ("blocks", 128)),
+    ("two segments a slice", 5120, 64, 160, 5120, 160, ("blocks", 32)),
+    ("E below one slice", 50, 128, 32, 45, 32, "uniform"),
 ]
 
 
@@ -84,6 +95,59 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def real_ids(rng, T, n, kind):
+    """Sorted ids of n real edges: "uniform"; "hub" (80% on row 0, the
+    rest spread, empty rows between); "one" (all on row 0); ("blocks", L):
+    segments of exactly L edges from edge 0, so with L a multiple or a
+    divisor of the kernels' 64-edge slice every boundary falls on or
+    between slice boundaries."""
+    if kind == "hub":
+        k = int(n * 0.8)
+        return np.concatenate([np.zeros(k, np.int64),
+                               np.sort(rng.integers(1, T, n - k))])
+    if kind == "one":
+        return np.zeros(n, np.int64)
+    if isinstance(kind, tuple):
+        return np.arange(n) // kind[1]
+    return np.sort(rng.integers(0, T, n))
+
+
+def exact_sum(vals, ids, T):
+    """The segment sum in float64 (ids >= T dropped) and the sum of
+    |terms| a row: the reference of float32 results. A float32 kernel sum
+    may differ from it by 1e-4 + 1e-6 * sum|terms| (summation order); the
+    plain version's f32 atomics are no such reference, as they add a
+    300k-edge segment in one chain and drift further when rows repeat."""
+    keep = ids.long().clamp(max=T)
+    out = torch.zeros(T + 1, 2, vals.shape[1], dtype=torch.float64,
+                      device=vals.device)
+    v = vals.double()
+    out.index_add_(0, keep, torch.stack([v, v.abs()], 1))
+    return out[:T, 0], out[:T, 1]
+
+
+def check_f32(label, got, exact):
+    ref, ref_abs = exact
+    err = (got.double() - ref).abs()
+    check(bool((err <= 1e-4 + 1e-6 * ref_abs).all()),
+          f"{label} f32: max error {float(err.max())} against float64")
+
+
+def check_deterministic(label, fn, times=3):
+    """``fn()`` ``times`` times: the outputs must be bit-identical."""
+    first = fn()
+    for _ in range(times - 1):
+        check(torch.equal(fn(), first), f"{label}: repeated calls differ")
+    log(f"  {label}: {times} calls bit-identical")
+
+
+def shares(ms, lib, bound):
+    """The share of the bound a timed call reaches and its time over the
+    library call's."""
+    return (f"bound_share={bound / ms:.3f} "
+            f"vs_library={'none' if lib is None else f'{ms / lib:.3f}x'}")
 
 
 def nvidia_smi() -> str:
@@ -97,7 +161,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3,
             budget_ms: float = 400.0) -> float:
     """Mean device time of ``fn`` over back-to-back calls: ``iters`` of
     them, fewer where one call alone would take the run past
-    ``budget_ms`` (hub-row calls take hundreds of ms)."""
+    ``budget_ms`` (a plain hub-chunk call takes ~10 ms)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -109,6 +173,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3,
     for _ in range(warmup - 1 if iters >= warmup else 0):
         fn()
     torch.cuda.synchronize()
+    # the device sleeps while the host enqueues the timed calls, so that a
+    # call shorter than its host overhead (checks, allocations, launches)
+    # is timed on the device and not on the host: ~0.2 ms a call, at the
+    # H100's ~2e6 cycles a ms
+    torch.cuda._sleep(int(2e6 * (1.0 + 0.2 * iters)))
     start.record()
     for _ in range(iters):
         fn()
@@ -195,6 +264,9 @@ def phase_kernel_vs_plain(cases, dev, power):
         torch.testing.assert_close(got, ref, rtol=1e-2, atol=1e-2)
         err = float((got - ref).abs().max())
         max_err = max(max_err, err)
+        if label == "bwd layer1":  # the mirrored backward with the hub
+            check_deterministic(f"K1 {label}", lambda: sorted_segment_sum_mxu(
+                vals, ids, T))
         ms = cuda_ms(lambda: sorted_segment_sum_mxu(vals, ids, T))
         plain = cuda_ms(lambda: _sorted_segment_sum_plain(vals, ids, T))
         lib = cuda_ms(lambda: torch.zeros(T, F, device=dev).index_add_(
@@ -208,49 +280,63 @@ def phase_kernel_vs_plain(cases, dev, power):
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                      ("bound_ms", bound)):
             tot[k] += v
-        # one warp walks each segment: the longest one bounds the kernel
         longest = int(_sorted_degrees(ids, T).max()) if T else 0
         log(f"  {label}: E={E} real={n} T={T} F={F} longest={longest} bf16  "
             f"kernel_ms={ms:.4f} "
             f"plain_ms={plain:.4f} library_ms={lib:.4f} "
             f"bound_us={bound * 1e3:.2f} ({nbytes} B at 3.35 TB/s) "
-            f"max_abs_err={err:.3g}  [{power}]")
+            f"{shares(ms, lib, bound)} max_abs_err={err:.3g}  [{power}]")
     return tot, max_err, bound_by
 
 
+def edge_case_ids(rng, E, T, n, pad, kind):
+    return np.concatenate([real_ids(rng, T, n, kind),
+                           np.full(E - n, pad)]).astype(np.int32)
+
+
 def phase_edge_cases(dev):
-    """The edge cases of tests/test_mxu_segment.py and more, bf16 and f32.
-    f32 is exact up to summation order: each output may differ by 1e-4 plus
-    1e-6 times the sum of |terms| of its segment, as the order error grows
-    with a hub's length (the plain version sums with atomics on the card).
-    bf16 vals: both sum the same bf16 inputs in f32, at rtol 1e-2."""
+    """The edge cases of tests/test_mxu_segment.py and more, f32 and bf16:
+    f32 against the float64 sum (exact_sum), bf16 against the plain
+    version (both sum the same bf16 inputs in f32, rtol 1e-2); then K1 and
+    K2 on bf16 views whose base is not 16-byte aligned (the one-element
+    load path)."""
+    from salient_plusplus_tpu_torch.ops.pallas_aggregate import (
+        _fused_gather_segment_sum_plain, fused_gather_segment_sum)
     from salient_plusplus_tpu_torch.ops.sorted_segment import (
         _sorted_segment_sum_plain, sorted_segment_sum_mxu)
 
     rng = np.random.default_rng(1)
-    for label, E, F, T, n, pad, hub in EDGE_CASES:
-        if hub:
-            real = np.concatenate([np.zeros(int(n * 0.8)),
-                                   np.sort(rng.integers(1, T, n - int(n * 0.8)))])
-        else:
-            real = np.sort(rng.integers(0, T, n))
-        ids = torch.from_numpy(np.concatenate(
-            [real, np.full(E - n, pad)]).astype(np.int32)).to(dev)
+    for label, E, F, T, n, pad, kind in EDGE_CASES:
+        ids = torch.from_numpy(edge_case_ids(rng, E, T, n, pad, kind)).to(dev)
         v32 = torch.from_numpy(rng.standard_normal((E, F)).astype(
             np.float32)).to(dev)
         v32[n:] = 333.0
-        got = sorted_segment_sum_mxu(v32, ids, T)
-        ref = _sorted_segment_sum_plain(v32, ids, T)
-        allowed = 1e-4 + 1e-6 * _sorted_segment_sum_plain(v32.abs(), ids, T)
-        err = (got - ref).abs()
-        check(bool((err <= allowed).all()),
-              f"{label} f32: max error {float(err.max())}")
+        check_f32(label, sorted_segment_sum_mxu(v32, ids, T),
+                  exact_sum(v32, ids, T))
         vals = v32.to(torch.bfloat16)
         got = sorted_segment_sum_mxu(vals, ids, T)
         ref = _sorted_segment_sum_plain(vals, ids, T)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
-        log(f"  edge case {label}: E={E} F={F} T={T} real={n}: f32 and bf16 "
+        log(f"  edge case {label}: E={E} F={F} T={T} real={n}: f32 matches "
+            f"the float64 sum, bf16 the plain version")
+    for F, offset in ((12, 12), (128, 4)):
+        E, T, n = 3000, 200, 2900
+        ids = torch.from_numpy(edge_case_ids(rng, E, T, n, T, "hub")).to(dev)
+        buf = torch.empty(E * F + offset, dtype=torch.bfloat16, device=dev)
+        view = buf[offset:].view(E, F)
+        view.copy_(torch.randn(E, F, device=dev))
+        check(view.data_ptr() % 16 != 0, "view is 16-byte aligned")
+        torch.testing.assert_close(
+            sorted_segment_sum_mxu(view, ids, T),
+            _sorted_segment_sum_plain(view, ids, T), atol=1e-2, rtol=1e-2)
+        src = torch.arange(E, dtype=torch.int32, device=dev)
+        cnt = torch.tensor(n, dtype=torch.int32, device=dev)
+        torch.testing.assert_close(
+            fused_gather_segment_sum(view, src, ids, cnt, T),
+            _fused_gather_segment_sum_plain(view, src, ids, cnt, T),
+            atol=1e-2, rtol=1e-2)
+        log(f"  misaligned bf16 view F={F} at element {offset}: K1 and K2 "
             f"match the plain version")
 
 
@@ -261,26 +347,28 @@ def _ms_of_bytes(nbytes: int) -> float:
 def _row(label, ms, plain, lib, bound, err, extra, power):
     log(f"  {label}: {extra}  kernel_ms={ms:.4f} plain_ms={plain:.4f} "
         f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
-        f"bound_us={bound * 1e3:.2f} max_abs_err={err:.3g}  [{power}]")
+        f"bound_us={bound * 1e3:.2f} {shares(ms, lib, bound)} "
+        f"max_abs_err={err:.3g}  [{power}]")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                 err=err)
 
 
 def measure_k2(label, emb, src, dst, count, T, n, power, time_it=True):
     """K2 against its plain version on the card (and, with ``time_it``,
-    the kernel, plain and library times beside the bound). f32 differs in
-    summation order only: 1e-4 plus 1e-6 times the segment's sum of
-    |terms|; bf16 rows are summed in f32 by both, rtol 1e-2."""
+    the kernel, plain and library times beside the bound). f32 is held
+    against the float64 sum (exact_sum); bf16 rows are summed in f32 by
+    kernel and plain version, rtol 1e-2."""
     from salient_plusplus_tpu_torch.ops.pallas_aggregate import (
         _fused_gather_segment_sum_plain as plain, fused_gather_segment_sum)
+    from salient_plusplus_tpu_torch.ops.segment import _safe_dst
 
     got = fused_gather_segment_sum(emb, src, dst, count, T)
     ref = plain(emb, src, dst, count, T)
     torch.cuda.synchronize()
     if emb.dtype == torch.float32:
-        allowed = 1e-4 + 1e-6 * plain(emb.abs(), src, dst, count, T)
-        check(bool(((got - ref).abs() <= allowed).all()),
-              f"K2 {label} f32: max error {float((got - ref).abs().max())}")
+        ids = _safe_dst(dst, count, T)
+        check_f32(f"K2 {label}", got, exact_sum(emb.index_select(
+            0, torch.where(ids < T, src.long(), 0)), ids, T))
     else:
         torch.testing.assert_close(got, ref, rtol=1e-2, atol=1e-2)
     err = float((got - ref).abs().max()) if got.numel() else 0.0
@@ -348,6 +436,8 @@ def phase_k2_k3_main(trainer, batch, dev, power):
     (the first: the power-law graph's hubs have the lowest ids) and a
     typical chunk (the middle) of layerwise inference, F = 128 and 256."""
     from salient_plusplus_tpu_torch.models.inference import LocalEngine
+    from salient_plusplus_tpu_torch.ops.pallas_aggregate import (
+        fused_gather_segment_sum)
     from salient_plusplus_tpu_torch.ops.segment import gather_rows
 
     feats = trainer.features
@@ -373,6 +463,11 @@ def phase_k2_k3_main(trainer, batch, dev, power):
             res[f"K3 {where} F{F}"] = measure_k3(
                 f"layerwise {where} F={F}", emb, n_id, power)
             x = gather_rows(emb, n_id)
+            if where == "hub chunk":
+                check_deterministic(
+                    f"K2 layerwise hub chunk F={F}",
+                    lambda: fused_gather_segment_sum(x, edge.src, edge.dst,
+                                                     edge.count, n))
             res[f"K2 {where} F{F}"] = measure_k2(
                 f"layerwise {where} F={F}", x, edge.src, edge.dst,
                 edge.count, n, int(edge.count), power)
@@ -381,16 +476,12 @@ def phase_k2_k3_main(trainer, batch, dev, power):
 
 def phase_k2_k3_edge_cases(dev):
     """K2 on K1's edge cases, with src ids into a larger table, real-looking
-    dst values past count and pad src ids that are no row; K3 at odd row
-    widths (the byte loop), n = 0, repeated ids and an integer table."""
+    dst values past count and pad src ids that are no row; K2 with count
+    inside a slice, 0, past E and below 0 (clamped); K3 at odd row widths
+    (the byte loop), n = 0, repeated ids and an integer table."""
     rng = np.random.default_rng(4)
-    for label, E, F, T, n, pad, hub in EDGE_CASES:
-        if hub:
-            real = np.concatenate([np.zeros(int(n * 0.8)), np.sort(
-                rng.integers(1, T, n - int(n * 0.8)))])
-        else:
-            real = np.sort(rng.integers(0, T, n))
-        dst = np.concatenate([real, np.full(E - n, pad)]).astype(np.int32)
+    for label, E, F, T, n, pad, kind in EDGE_CASES:
+        dst = edge_case_ids(rng, E, T, n, pad, kind)
         dst[n:n + (E - n) // 2] = rng.integers(0, T, (E - n) // 2)
         N = 3 * T + 5
         src = rng.integers(0, N, E).astype(np.int32)
@@ -404,6 +495,22 @@ def phase_k2_k3_edge_cases(dev):
             measure_k2(label, e, src_d, dst_d, count, T, n, "", False)
         log(f"  K2 edge case {label}: E={E} F={F} T={T} N={N} real={n}, "
             f"dst past count and pad src garbage: f32 and bf16 match")
+    E, F, T, N = 4096, 128, 300, 1000
+    for count in (333, 0, 5000, -3):
+        c = max(0, min(count, E))
+        dst = np.sort(rng.integers(0, T, E)).astype(np.int32)
+        dst[c:] = rng.integers(0, T, E - c)   # not sorted past count
+        src = rng.integers(0, N, E).astype(np.int32)
+        src[c:] = 2**31 - 1
+        emb = torch.from_numpy(rng.standard_normal((N, F)).astype(
+            np.float32)).to(dev)
+        src_d, dst_d = torch.from_numpy(src).to(dev), torch.from_numpy(
+            dst).to(dev)
+        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+        for e in (emb, emb.to(torch.bfloat16)):
+            measure_k2(f"count {count}", e, src_d, dst_d, cnt, T, c, "",
+                       False)
+        log(f"  K2 count={count} of E={E}: f32 and bf16 match")
     for N, F, n in ((1000, 128, 512), (300, 256, 128), (50, 12, 400),
                     (70, 100, 9), (10, 300, 0), (5, 8, 33)):
         tab = torch.from_numpy(rng.integers(-100, 100, (N, F))).to(dev)
@@ -768,7 +875,8 @@ def main() -> int:
                                                   dev, power)
     log(f"  K1 per train step (4 calls): kernel_ms={tot['ms']:.4f} "
         f"plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
-        f"bound_us={tot['bound_ms'] * 1e3:.2f}  [{power}]")
+        f"bound_us={tot['bound_ms'] * 1e3:.2f} "
+        f"{shares(tot['ms'], tot['library_ms'], tot['bound_ms'])}  [{power}]")
     phase_edge_cases(dev)
     k23 = phase_k2_k3_main(trainer, batch, dev, power)
     phase_k2_k3_edge_cases(dev)

@@ -1,131 +1,49 @@
-// Sorted segment sum for Hopper (sm_90a):
+// Sorted segment sum for Hopper (sm_90a), K1:
 //
 //     out[t, :] = sum over e with ids[e] == t of vals[e, :]     (t < T)
 //
-// over a nondecreasing ids[E]; every id >= T (padding) is dropped, and rows
-// of vals past the last real id are never read, whatever they hold.
-// Accumulates in f32 and returns f32 [T, F].
+// over a nondecreasing ids[E]; every id >= T (padding, which may lie far
+// above T) is dropped, and rows of vals past the last real id are never
+// read, whatever they hold. Accumulates in f32 and returns f32 [T, F].
 //
 // Replaces the TPU kernel salient_plusplus_tpu/ops/mxu_segment.py::
 // _segment_kernel (a one-hot MXU matmul over 512-edge DMA chunks and
 // 128-target tiles). That design answers the TPU's lack of a fast
-// scatter; it is not carried over. Here the same function is a CSR walk:
+// scatter; it is not carried over.
 //
-// - one warp owns one target row t. Its edge range [e0, e1) is found by
-//   two binary searches over ids (lower_bound(t), lower_bound(t + 1)), so
-//   pads drop out whatever their value, as the JAX wrapper's
-//   searchsorted-built tile pointers drop them;
-// - the warp walks its contiguous range, lanes on neighbouring columns
-//   (coalesced loads of each vals row), CH accumulators per lane in f32
-//   registers; columns beyond 32 * CH take further passes;
-// - it writes the row once. Empty rows write zeros, so the output may come
-//   from torch.empty. No atomics: the result is deterministic.
+// Bound: memory. The function reads each real edge's vals row once and its
+// id (E_real * F * sizeof(vals) + 4 * E_real bytes) and writes 4 * T * F
+// bytes; its E_real * F f32 adds are far under the card's f32 rate.
 //
-// Bound: memory. The work reads each real edge's vals row once
-// (E_real * F * sizeof(vals)) plus the ids (4 * E_real at most), and
-// writes 4 * T * F bytes; the f32 adds are E_real * F, far under the card's
-// f32 rate. The design reads every input byte once and writes each output
-// row once from registers. Later work: 16-byte vector loads, splitting
-// long (hub) ranges of the mirrored backward across warps, async copies.
+// Design: segment_common.cuh, shared with K2 (here row(e) = e). The edges
+// are cut into slices of kSlice = 64, one per worker of G lanes, so the
+// time does not follow the longest segment (the mirrored backward's hubs
+// reach thousands of edges); each lane loads 16 bytes of a row at a time
+// with 8 rows in flight; segments that cross a slice edge leave f32
+// partial rows in scratch (2 * ceil(E / 64) rows of round_up(F, 4) f32,
+// 2 KB per slice at F = 256) that a second pass sums in a fixed order;
+// empty rows are written as zeros. No atomics: the same inputs give the
+// same bits. Against the bound it adds the partial rows' write and read
+// (two f32 rows per 64 edges at most) and the id searches.
 //
 // Plain C interface, bound with ctypes (salient_plusplus_tpu_torch/ops/
-// sorted_segment.py); launches on the caller's stream and returns
-// cudaGetLastError().
+// sorted_segment.py); launches both passes on the caller's stream and
+// returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cstdint>
-
-namespace {
-
-constexpr int kWarpsPerBlock = 8;
-constexpr int kCH = 8;  // columns per lane per pass: 256 columns a pass
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ ids,
-                                               int64_t n, int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(__ldg(ids + mid)) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sorted_segment_sum_kernel(const T* __restrict__ vals,
-                          const int32_t* __restrict__ ids, int64_t E,
-                          int64_t num_segments, int64_t F,
-                          float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t t =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (t >= num_segments) return;
-  // every lane searches the same addresses: broadcast loads
-  const int64_t e0 = lower_bound(ids, E, t);
-  const int64_t e1 = lower_bound(ids, E, t + 1);
-  float* __restrict__ orow = out + t * F;
-  for (int64_t c0 = 0; c0 < F; c0 += 32 * kCH) {
-    float acc[kCH];
-#pragma unroll
-    for (int k = 0; k < kCH; ++k) acc[k] = 0.f;
-    for (int64_t e = e0; e < e1; ++e) {
-      const T* __restrict__ row = vals + e * F + c0 + lane;
-#pragma unroll
-      for (int k = 0; k < kCH; ++k) {
-        if (c0 + lane + 32 * k < F) acc[k] += to_f32(row[32 * k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kCH; ++k) {
-      const int64_t c = c0 + lane + 32 * k;
-      if (c < F) orow[c] = acc[k];
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* vals, const int32_t* ids, int64_t E,
-                   int64_t num_segments, int64_t F, float* out,
-                   cudaStream_t stream) {
-  const int64_t blocks = (num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sorted_segment_sum_kernel<T><<<static_cast<unsigned>(blocks),
-                                  kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(vals), ids, E, num_segments, F, out);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "segment_common.cuh"
 
 extern "C" {
 
 // dtype: 0 = float32 vals, 1 = bfloat16 vals. All pointers are device
-// pointers to contiguous tensors; stream is a cudaStream_t.
+// pointers to contiguous tensors; scratch holds scratch_len f32 (at least
+// 2 * ceil(E / 64) * round_up(F, 4)); stream is a cudaStream_t.
 int sptpu_sorted_segment_sum(const void* vals, int dtype, const void* ids,
                              int64_t E, int64_t num_segments, int64_t F,
-                             void* out, void* stream) {
-  if (num_segments <= 0 || F <= 0) return 0;
-  const auto* ids_p = static_cast<const int32_t*>(ids);
-  auto* out_p = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return static_cast<int>(
-        launch<float>(vals, ids_p, E, num_segments, F, out_p, s));
-  }
-  if (dtype == 1) {
-    return static_cast<int>(
-        launch<__nv_bfloat16>(vals, ids_p, E, num_segments, F, out_p, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                             void* out, void* scratch, int64_t scratch_len,
+                             void* stream) {
+  return sptpu_seg::segment_sum<false>(vals, dtype, nullptr, ids, nullptr, E,
+                                       num_segments, F, out, scratch,
+                                       scratch_len, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Shared libraries bound with ``ctypes`` through a plain C interface:
 - ``sampler_lib_path()``: the host C++ sampler (``native/sampler.cpp``, a
   copy of the JAX package's), built with ``g++``;
 - ``kernel_lib_path(name)``: one library per CUDA kernel source
-  (``csrc/{name}.cu``), built with ``nvcc`` for ``sm_90a``, so the kernels
+  (``csrc/{name}.cu``, with the headers of ``csrc/`` on its include path
+  and in its hash), built with ``nvcc`` for ``sm_90a``, so the kernels
   build in parallel. Only a CUDA launch asks for one; ``launch_kernel``
   calls its C entry point ``sptpu_{name}`` on the current stream.
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import hashlib
 import os
 import shutil
@@ -31,6 +33,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SAMPLER_SRC = os.path.join(_PKG_DIR, "native", "sampler.cpp")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
 KERNELS = ("sorted_segment_sum", "gather_rows", "fused_gather_segment_sum")
 # one lock per library, so the sampler and the kernels build in parallel
 _locks = {stem: threading.Lock()
@@ -92,12 +95,20 @@ def sampler_lib_path() -> str:
         _SAMPLER_SRC])
 
 
+def kernel_sources(name: str) -> tuple:
+    """``csrc/{name}.cu`` and every header of ``csrc/`` (K1 and K2 share
+    ``segment_common.cuh``): all join the library's hash, so an edited
+    header rebuilds too."""
+    return (os.path.join(_CSRC, f"{name}.cu"),
+            *sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
+
+
 def kernel_lib_path(name: str) -> str:
-    src = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    return _build(f"sptpu_{name}", (src,), lambda out: [
+    srcs = kernel_sources(name)
+    return _build(f"sptpu_{name}", srcs, lambda out: [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", out, src])
+        "-I", _CSRC, "-o", out, srcs[0]])
 
 
 def launch_kernel(name: str, argtypes, device: torch.device, *args) -> None:

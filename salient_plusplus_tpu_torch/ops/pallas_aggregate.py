@@ -8,10 +8,12 @@ runs the Pallas TPU kernel ``_kernel``: per 64-target tile, index chunks
 DMA'd to SMEM and a ring of row DMAs from HBM, accumulated in VMEM. The
 tiles, index chunks and DMA ring (``tile_starts``, ``t_tile``, ``chunk``,
 ``r``) are TPU devices and are not carried over. Here the same function is
-the hand-written CUDA kernel ``csrc/fused_gather_segment_sum.cu``: one warp
-per target row finds its edge range by binary search over ``dst`` (edges
-``>= count`` never count, with ``count`` read on the device), reads each
-``emb[src[e]]`` row straight from the table and writes its row once.
+the hand-written CUDA kernel ``csrc/fused_gather_segment_sum.cu`` (design
+in ``csrc/segment_common.cuh``, shared with K1): the real edges (below
+``count``, read on the device) are cut into slices of 64, each walked in
+order by a group of lanes that reads each ``emb[src[e]]`` row straight
+from the table in 16-byte loads; segments that cross a slice edge leave
+partial rows in a scratch buffer that a second pass sums in a fixed order.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 ``_fused_gather_segment_sum_plain``. There is no fallback between the two.
@@ -34,7 +36,19 @@ from .segment import _safe_dst
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+# kSlice of csrc/segment_common.cuh (edges a worker of K1 and K2 owns); the
+# kernels refuse a scratch sized for a larger one
+_SLICE_EDGES = 64
+
+
+def _split_scratch(E: int, F: int, device) -> torch.Tensor:
+    """K1's and K2's scratch: two f32 partial rows (F rounded up to 4) per
+    slice of ``_SLICE_EDGES`` edges, for the segments that cross a slice
+    edge. Uninitialised: the kernels read only what they wrote."""
+    slices = -(-E // _SLICE_EDGES)
+    return torch.empty(2 * slices * (-(-F // 4) * 4), dtype=torch.float32,
+                       device=device)
 
 
 def _fused_gather_segment_sum_plain(emb: torch.Tensor, src: torch.Tensor,
@@ -88,10 +102,12 @@ def fused_gather_segment_sum(emb: torch.Tensor, src: torch.Tensor,
                       device=emb.device)
     if num_segments == 0 or F == 0:
         return out
+    scratch = _split_scratch(src.shape[0], F, emb.device)
     launch_kernel("fused_gather_segment_sum", _ARGTYPES, emb.device,
                   emb.data_ptr(), _DTYPE_CODE[emb.dtype], src.data_ptr(),
                   dst.data_ptr(), count.data_ptr(), src.shape[0],
-                  num_segments, F, out.data_ptr())
+                  num_segments, F, out.data_ptr(), scratch.data_ptr(),
+                  scratch.numel())
     fused_gather_segment_sum.launches += 1
     return out
 

@@ -5,8 +5,11 @@ names. There, ``sorted_segment_sum_mxu`` runs the Pallas TPU kernel
 ``_segment_kernel``: a one-hot MXU matmul over 512-edge DMA chunks and
 128-target tiles, a design that answers the TPU's slow scatters. That
 design is not carried over. Here the same function is the hand-written
-CUDA kernel ``csrc/sorted_segment_sum.cu``: one warp per target row walks
-its contiguous edge range and writes the row once (no atomics).
+CUDA kernel ``csrc/sorted_segment_sum.cu`` (design in
+``csrc/segment_common.cuh``, shared with K2): the edges are cut into
+slices of 64, each summed in order by a group of lanes with 16-byte
+loads; segments that cross a slice edge leave partial rows in a scratch
+buffer that a second pass sums in a fixed order (no atomics).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 ``_sorted_segment_sum_plain``. There is no fallback between the two.
@@ -31,10 +34,12 @@ import ctypes
 import torch
 
 from ..native.build import launch_kernel
-from .pallas_aggregate import _DTYPE_CODE, fused_segment_sum_op
+from .pallas_aggregate import (_DTYPE_CODE, _split_scratch,
+                               fused_segment_sum_op)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64]
 
 
 def _sorted_segment_sum_plain(vals: torch.Tensor, ids: torch.Tensor,
@@ -74,9 +79,11 @@ def sorted_segment_sum_mxu(vals: torch.Tensor, ids: torch.Tensor,
                       device=vals.device)
     if num_segments == 0 or F == 0:
         return out
+    scratch = _split_scratch(E, F, vals.device)
     launch_kernel("sorted_segment_sum", _ARGTYPES, vals.device,
                   vals.data_ptr(), _DTYPE_CODE[vals.dtype], ids.data_ptr(), E,
-                  num_segments, F, out.data_ptr())
+                  num_segments, F, out.data_ptr(), scratch.data_ptr(),
+                  scratch.numel())
     sorted_segment_sum_mxu.launches += 1
     return out
 

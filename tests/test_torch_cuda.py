@@ -11,14 +11,17 @@ not have; this file imports nothing of it.)
 Whether a card exists is decided inside the ``cuda_device`` fixture, so
 every test collects everywhere and skips without a card.
 
-Tolerances: float32 sums differ from ``index_add_`` (atomics on the
-card) only in summation order. That error grows with the terms a segment
-sums, so each output may differ by 1e-4 plus 1e-6 times the sum of the
-absolute values of its terms (a 2400-edge hub row of unit normals sums to
-about 50 and may differ by ~1e-4). For bfloat16 vals both accumulate the
-same bf16 inputs in float32, compared at rtol 1e-2. K2 sums the same rows
-as K1 and is held to the same tolerances; K3 copies bytes and must be
-exact.
+Tolerances: a float32 kernel sum differs from the same sum taken in
+float64 only by its summation order. That error grows with the terms a
+segment sums, so each output may differ by 1e-4 plus 1e-6 times the sum
+of the absolute values of its terms (a 2400-edge hub row of unit normals
+sums to about 50 and may differ by ~1e-4). The float64 sum is the
+reference for float32, not the plain version: its ``index_add_`` atomics
+add a 300k-edge segment in one f32 chain, which drifts further than that
+from the exact sum when the rows repeat. For bfloat16 vals kernel and
+plain version both accumulate the same bf16 inputs in float32, compared
+at rtol 1e-2. K2 sums the same rows as K1 and is held to the same
+tolerances; K3 copies bytes and must be exact.
 """
 
 import numpy as np
@@ -41,50 +44,97 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(E, F, T, n_real, pad, seed=0, hub=False):
+def _real_ids(rng, T, n_real, kind):
+    """Sorted ids of the real edges. kind: "uniform"; "hub" (80% on row
+    0, the rest spread, empty rows between); "one" (every real edge on row
+    0); ("blocks", L): segments of exactly L edges from edge 0, so with L a
+    multiple or a divisor of the kernels' 64-edge slice every boundary
+    falls on or between slice boundaries."""
+    if kind == "hub":
+        k = int(n_real * 0.8)
+        return np.concatenate([np.zeros(k, np.int64),
+                               np.sort(rng.integers(1, T, n_real - k))])
+    if kind == "one":
+        return np.zeros(n_real, np.int64)
+    if isinstance(kind, tuple) and kind[0] == "blocks":
+        return np.arange(n_real) // kind[1]
+    return np.sort(rng.integers(0, T, n_real))
+
+
+def _case(E, F, T, n_real, pad, seed=0, kind="uniform"):
     rng = np.random.default_rng(seed)
-    if hub:
-        ids = np.concatenate([np.zeros(int(n_real * 0.8), np.int32),
-                              np.sort(rng.integers(1, T, n_real
-                                                   - int(n_real * 0.8)))])
-    else:
-        ids = np.sort(rng.integers(0, T, n_real))
-    ids = np.concatenate([ids, np.full(E - n_real, pad)]).astype(np.int32)
+    ids = np.concatenate([_real_ids(rng, T, n_real, kind),
+                          np.full(E - n_real, pad)]).astype(np.int32)
     vals = rng.standard_normal((E, F)).astype(np.float32)
     vals[n_real:] = 333.0  # garbage in pads must not leak
     return torch.from_numpy(vals), torch.from_numpy(ids)
 
 
+
+def _exact(vals, ids, num_segments):
+    """The segment sum in float64, and the sum of |terms| a row."""
+    keep = ids.long().clamp(max=num_segments)
+    out = torch.zeros(num_segments + 1, 2, vals.shape[1], dtype=torch.float64,
+                      device=vals.device)
+    v = vals.double()
+    out.index_add_(0, keep, torch.stack([v, v.abs()], 1))
+    return out[:num_segments, 0], out[:num_segments, 1]
+
+
+def _exact_fused(emb, src, dst, count, num_segments):
+    """K2's function in float64 (edges past count and pads dropped)."""
+    from salient_plusplus_tpu_torch.ops.segment import _safe_dst
+
+    ids = _safe_dst(dst, count, num_segments)
+    rows = torch.where(ids < num_segments, src.long(), 0)
+    return _exact(emb.index_select(0, rows), ids, num_segments)
+
+
+def _assert_matches(got, exact, plain, dtype):
+    """The stated tolerances: f32 against the float64 sum ``exact`` (sum,
+    sum of |terms|) by summation order, 1e-4 + 1e-6 Σ|terms| a row; bf16
+    against the plain version at rtol 1e-2."""
+    assert got.dtype == torch.float32 and got.shape == plain.shape
+    if dtype == torch.float32:
+        ref, ref_abs = exact
+        err = (got.double() - ref).abs()
+        assert bool((err <= 1e-4 + 1e-6 * ref_abs).all()), float(err.max())
+    else:
+        torch.testing.assert_close(got, plain, atol=1e-2, rtol=1e-2)
+
 CASES = [
-    # (E, F, T, n_real, pad id, hub)
-    (1024, 64, 128, 900, 128, False),
-    (2048, 100, 384, 1737, 384, False),
-    (512, 8, 128, 0, 128, False),           # no real edges
-    (1024, 12, 256, 800, 640, False),       # pads above num_segments
-    (4096, 16, 256, 3000, 256, True),       # hub + empty segments
-    (20000, 300, 5000, 19000, 5000, False),  # F beyond one 256-column pass
+    # (E, F, T, n_real, pad id, kind)
+    (1024, 64, 128, 900, 128, "uniform"),
+    (2048, 100, 384, 1737, 384, "uniform"),
+    (512, 8, 128, 0, 128, "uniform"),        # no real edges
+    (1024, 12, 256, 800, 640, "uniform"),    # pads above num_segments
+    (4096, 16, 256, 3000, 256, "hub"),       # hub + empty segments
+    (20000, 300, 5000, 19000, 5000, "uniform"),  # F beyond one pass
+    # one segment holds every real edge, over ~4700 slices
+    (300_000, 256, 64, 299_000, 64, "one"),
+    # segment boundaries exactly on slice boundaries (and between them)
+    (64 * 80, 128, 80, 64 * 80, 80, ("blocks", 64)),
+    (64 * 80, 256, 40, 64 * 80 - 7, 40, ("blocks", 128)),
+    (64 * 80, 64, 160, 64 * 80, 160, ("blocks", 32)),
+    (50, 128, 32, 45, 32, "uniform"),        # E smaller than one slice
+    (50, 256, 8, 50, 8, "one"),              # ... one segment, no pads
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_matches_plain(cuda_device, case, dtype):
-    E, F, T, n_real, pad, hub = case
-    vals, ids = _case(E, F, T, n_real, pad, hub=hub)
+    E, F, T, n_real, pad, kind = case
+    vals, ids = _case(E, F, T, n_real, pad, kind=kind)
     vals = vals.to(cuda_device, dtype)
     ids = ids.to(cuda_device)
     n0 = S.sorted_segment_sum_mxu.launches
     got = S.sorted_segment_sum_mxu(vals, ids, T)
     torch.cuda.synchronize()
     assert S.sorted_segment_sum_mxu.launches == n0 + 1
-    ref = S._sorted_segment_sum_plain(vals, ids, T)
-    assert got.dtype == torch.float32 and got.shape == (T, F)
-    if dtype == torch.float32:
-        allowed = 1e-4 + 1e-6 * S._sorted_segment_sum_plain(vals.abs(), ids, T)
-        err = (got - ref).abs()
-        assert bool((err <= allowed).all()), float(err.max())
-    else:
-        torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
+    assert got.shape == (T, F)
+    _assert_matches(got, _exact(vals, ids, T),
+                    S._sorted_segment_sum_plain(vals, ids, T), dtype)
 
 
 def test_kernel_rejects_bad_inputs(cuda_device):
@@ -129,9 +179,9 @@ def test_spmm_agg_on_card_matches_cpu(cuda_device, mean, layer):
 def test_fused_kernel_matches_plain(cuda_device, case, dtype):
     """K2 on K1's cases, with src ids into a larger table, real-looking
     dst values written past count, and pad src ids that are no row."""
-    E, F, T, n_real, pad, hub = case
+    E, F, T, n_real, pad, kind = case
     rng = np.random.default_rng(7)
-    _, dst = _case(E, F, T, n_real, pad, hub=hub)
+    _, dst = _case(E, F, T, n_real, pad, kind=kind)
     dst[n_real:] = torch.from_numpy(rng.integers(0, T, E - n_real))
     N = 3 * T + 5
     emb = torch.from_numpy(rng.standard_normal((N, F)).astype(np.float32))
@@ -143,15 +193,79 @@ def test_fused_kernel_matches_plain(cuda_device, case, dtype):
     got = A.fused_gather_segment_sum(emb, src, dst, count, T)
     torch.cuda.synchronize()
     assert A.fused_gather_segment_sum.launches == n0 + 1
-    ref = A._fused_gather_segment_sum_plain(emb, src, dst, count, T)
-    assert got.dtype == torch.float32 and got.shape == (T, F)
-    if dtype == torch.float32:
-        allowed = 1e-4 + 1e-6 * A._fused_gather_segment_sum_plain(
-            emb.abs(), src, dst, count, T)
-        err = (got - ref).abs()
-        assert bool((err <= allowed).all()), float(err.max())
-    else:
-        torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
+    assert got.shape == (T, F)
+    _assert_matches(got, _exact_fused(emb, src, dst, count, T),
+                    A._fused_gather_segment_sum_plain(emb, src, dst, count, T),
+                    dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("count", [333, 0, 5000, -3, 2**31 - 1])
+def test_fused_kernel_count(cuda_device, count, dtype):
+    """K2 with count inside a slice (333), 0, past E (5000 > 4096, and the
+    largest int32), and below 0 (clamped to 0): real-looking dst values
+    and src ids that are no row lie past min(count, E) only."""
+    E, F, T = 4096, 128, 300
+    rng = np.random.default_rng(11)
+    c = max(0, min(count, E))
+    dst = np.sort(rng.integers(0, T, E)).astype(np.int32)
+    dst[c:] = rng.integers(0, T, E - c)   # not sorted past count
+    N = 1000
+    src = rng.integers(0, N, E).astype(np.int32)
+    src[c:] = 2**31 - 1
+    emb = torch.from_numpy(rng.standard_normal((N, F)).astype(
+        np.float32)).to(cuda_device, dtype)
+    src, dst = (torch.from_numpy(t).to(cuda_device) for t in (src, dst))
+    cnt = torch.tensor(count, dtype=torch.int32, device=cuda_device)
+    got = A.fused_gather_segment_sum(emb, src, dst, cnt, T)
+    _assert_matches(got, _exact_fused(emb, src, dst, cnt, T),
+                    A._fused_gather_segment_sum_plain(emb, src, dst, cnt, T),
+                    dtype)
+    if c == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_kernels_are_deterministic(cuda_device, kernel):
+    """The hub case (one segment over ~4700 slices, F 256) twice, and a
+    typical case: bit-identical outputs, the sums in a fixed order."""
+    for E, F, T, n_real, pad, kind in (CASES[6], CASES[5]):
+        vals, ids = _case(E, F, T, n_real, pad, kind=kind)
+        vals, ids = vals.to(cuda_device, torch.bfloat16), ids.to(cuda_device)
+        if kernel == "K1":
+            run = lambda: S.sorted_segment_sum_mxu(vals, ids, T)  # noqa: E731
+        else:
+            src = torch.arange(E, dtype=torch.int32, device=cuda_device)
+            cnt = torch.tensor(n_real, dtype=torch.int32, device=cuda_device)
+            run = lambda: A.fused_gather_segment_sum(  # noqa: E731
+                vals, src, ids, cnt, T)
+        first = run()
+        for _ in range(2):
+            assert torch.equal(run(), first)
+
+
+@pytest.mark.parametrize("F,offset", [(12, 12), (128, 4)])
+def test_kernels_on_misaligned_views(cuda_device, F, offset):
+    """Contiguous bf16 views whose base is not 16-byte aligned: F 12 at an
+    odd row (24-byte rows: the one-element path), and F 128 four elements
+    into a buffer (256-byte rows, misaligned base: also that path)."""
+    E, T, n_real = 3000, 200, 2900
+    vals, ids = _case(E, F, T, n_real, T, seed=5, kind="hub")
+    buf = torch.empty(E * F + offset, dtype=torch.bfloat16,
+                      device=cuda_device)
+    view = buf[offset:].view(E, F)
+    view.copy_(vals.to(cuda_device, torch.bfloat16))
+    ids = ids.to(cuda_device)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    got = S.sorted_segment_sum_mxu(view, ids, T)
+    torch.testing.assert_close(got, S._sorted_segment_sum_plain(view, ids, T),
+                               atol=1e-2, rtol=1e-2)
+    src = torch.arange(E, dtype=torch.int32, device=cuda_device)
+    cnt = torch.tensor(n_real, dtype=torch.int32, device=cuda_device)
+    got = A.fused_gather_segment_sum(view, src, ids, cnt, T)
+    torch.testing.assert_close(
+        got, A._fused_gather_segment_sum_plain(view, src, ids, cnt, T),
+        atol=1e-2, rtol=1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

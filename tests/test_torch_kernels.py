@@ -168,3 +168,37 @@ def test_new_wrappers_refuse_other_devices():
         G.pallas_gather_rows(t, i)
     with pytest.raises(ValueError):
         A.fused_gather_segment_sum(t, i, i, 4, 2)
+
+
+def test_segment_kernels_hash_their_shared_header(monkeypatch):
+    """K1 and K2 include csrc/segment_common.cuh: the header is on nvcc's
+    include path and joins each library's hash, so an edited header
+    rebuilds both (nothing is compiled here)."""
+    from salient_plusplus_tpu_torch.native import build
+
+    seen = {}
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build, "_build", lambda stem, srcs, cmd_for: seen
+                        .setdefault(stem, (srcs, cmd_for("OUT"))))
+    for name in ("sorted_segment_sum", "fused_gather_segment_sum"):
+        build.kernel_lib_path(name)
+        srcs, cmd = seen[f"sptpu_{name}"]
+        assert srcs[0].endswith(f"csrc/{name}.cu") and cmd[-1] == srcs[0]
+        assert any(s.endswith("csrc/segment_common.cuh") for s in srcs)
+        assert cmd[cmd.index("-I") + 1] == build._CSRC
+
+
+def test_split_scratch_matches_the_kernels_slice():
+    """The wrappers size K1's and K2's scratch by the header's kSlice:
+    two f32 rows of round_up(F, 4) per slice."""
+    import re
+
+    from salient_plusplus_tpu_torch.native import build
+
+    with open(f"{build._CSRC}/segment_common.cuh") as f:
+        k_slice = int(re.search(r"kSlice = (\d+);", f.read()).group(1))
+    assert A._SLICE_EDGES == k_slice
+    for E, F in ((0, 8), (1, 12), (k_slice, 128), (k_slice + 1, 13)):
+        s = A._split_scratch(E, F, "cpu")
+        assert s.dtype == torch.float32
+        assert s.numel() == 2 * -(-E // k_slice) * (-(-F // 4) * 4)
