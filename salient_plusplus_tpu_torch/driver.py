@@ -2,13 +2,17 @@
 
 Usage:
     python -m salient_plusplus_tpu_torch.driver <dataset> <job_name> [--flags]
+        [--do_test_run epoch0,epoch1,...]
 
 <dataset> is a GraphData directory name under --dataset_root, or a
 synthetic spec "synth:V=100000,C=32,deg=12,F=64". The flags are the JAX
 driver's (every RunConfig field). The port runs single-card training and
 a batchwise or layerwise (``--final_test_mode layerwise``) final test on a
-CUDA device; ``main(argv, device="cpu")`` runs it on the CPU. What later
-slices bring raises NotImplementedError naming its ROADMAP.md item.
+CUDA device; ``main(argv, device="cpu")`` runs it on the CPU. Checkpoints
+go to the job directory; ``RESUME=1`` restarts a trial from its latest
+one, and ``--do_test_run e0,e1,...`` scores saved epochs instead of
+training. What later slices bring raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ def run_computation(cfg, graph, job_dir: str, logger, device=None):
     results = []
     for trial in range(cfg.trials):
         trainer = Trainer(cfg, graph, logger=logger, device=device)
-        res = trainer.run_trial(trial)
+        res = trainer.run_trial(trial, checkpoint_dir=job_dir)
         logger.log("performance_breakdown", trainer.stats.summary())
         results.append({"trial": trial, "best_epoch": res.best_epoch,
                         "best_valid": res.best_valid_acc,
@@ -89,6 +93,24 @@ def run_computation(cfg, graph, job_dir: str, logger, device=None):
     return results
 
 
+def do_test_run(cfg, graph, job_dir: str, checkpoint_epochs, logger,
+                device=None):
+    """Score saved checkpoints of trial 0 on valid and test (batchwise)."""
+    from .train import checkpoint as ckpt
+    from .train.loop import Trainer
+
+    trainer = Trainer(cfg, graph, logger=logger, device=device)
+    out = []
+    for epoch in checkpoint_epochs:
+        trainer.state = ckpt.restore(job_dir, trainer.state, 0, epoch)
+        acc_v = trainer.evaluate("valid")
+        acc_t = trainer.evaluate("test")
+        logger.log("test_run", epoch, acc_v, acc_t)
+        out.append({"epoch": epoch, "valid": acc_v, "test": acc_t})
+        print(f"checkpoint epoch {epoch}: valid={acc_v:.4f} test={acc_t:.4f}")
+    return out
+
+
 def main(argv=None, device=None):
     """Run the CLI; ``device=None`` means CUDA."""
     from .config import RunConfig
@@ -96,7 +118,8 @@ def main(argv=None, device=None):
     from .utils.logging import RunLogger
 
     usage = ("usage: python -m salient_plusplus_tpu_torch.driver "
-             "<dataset> <job_name> [--flags]")
+             "<dataset> <job_name> [--flags] "
+             "[--do_test_run epoch0,epoch1,...]")
     argv = argv if argv is not None else sys.argv[1:]
     if argv and not argv[0].startswith("-"):
         if len(argv) < 2 or argv[1].startswith("-"):
@@ -105,10 +128,14 @@ def main(argv=None, device=None):
         dataset_name, job_name, rest = argv[0], argv[1], argv[2:]
     else:
         dataset_name, job_name, rest = "synth:V=50000", "job", argv
+    test_run_epochs = None
     if "--do_test_run" in rest:
-        raise NotImplementedError(
-            "--do_test_run (scoring saved checkpoints): ROADMAP.md Queue 1 "
-            "item 8")
+        i = rest.index("--do_test_run")
+        if i + 1 >= len(rest):
+            print(usage, file=sys.stderr)
+            sys.exit(2)
+        test_run_epochs = [int(e) for e in rest[i + 1].split(",")]
+        rest = rest[:i] + rest[i + 2:]
     cfg = RunConfig.from_args(rest)
     cfg = cfg.replace(dataset_name=dataset_name, job_name=job_name)
     _reject_unported(cfg)
@@ -125,8 +152,15 @@ def main(argv=None, device=None):
     if cfg.make_deterministic:
         np.random.seed(cfg.seed)
     try:
-        out = run_computation(cfg, graph, job_dir, logger, device=device)
+        if test_run_epochs is not None:
+            out = do_test_run(cfg, graph, job_dir, test_run_epochs, logger,
+                              device=device)
+        else:
+            out = run_computation(cfg, graph, job_dir, logger, device=device)
     finally:
+        from .train.checkpoint import wait_for_async_saves
+
+        wait_for_async_saves()  # never exit with checkpoint IO in flight
         logger.flush()
     with open(os.path.join(job_dir, "results.json"), "w") as f:
         json.dump(out, f, indent=2, default=str)

@@ -9,11 +9,12 @@ row-gather kernel (K3), the layer core aggregates them through the
 no-mirror hop (the fused gather + segment-sum kernel, K2), and the chunk's
 rows are written into the next layer's embedding matrix.
 
-Served here: SAGE, SAGEClassic, GIN, JKNet and SAGEResInception. BatchNorm
-layers run off the trained running statistics (the model is put in
-``eval()`` mode). GAT and GCN wait for their models (ROADMAP.md Queue 1
-items 11-12); ARMA is broken in the reference itself and raises, as in the
-JAX package. The functions take the port's model, not flax params.
+Served here: SAGE, SAGEClassic, GIN, JKNet, SAGEResInception, GAT and GCN.
+BatchNorm layers run off the trained running statistics (the model is put
+in ``eval()`` mode). GAT's chunk hop has no mirror: its message sum is the
+sorted segment-sum kernel (K1); GCN's is K2, as every other model's. ARMA
+is broken in the reference itself and raises, as in the JAX package. The
+functions take the port's model, not flax params.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from torch import nn
 from ..ops.segment import gather_rows
 from ..sampling.batch import BatchSpec, EdgeBlock
 from ..sampling.cpp import BatchBuffers, NativeSampler
-from .modules import _PENDING, MODEL_REGISTRY
+from .modules import MODEL_REGISTRY
 
 # not served layerwise by the JAX package either: the trainer scores it
 # batchwise
@@ -127,10 +128,6 @@ def run_layerwise_zoo(model_name: str, model: nn.Module,
         raise NotImplementedError(
             f"layerwise inference not implemented for {model_name} "
             "(ARMA is broken in the reference itself, driver/main.py:93)")
-    if model_name in _PENDING:
-        raise NotImplementedError(
-            f"layerwise inference for {model_name}: its model is not "
-            f"ported yet (ROADMAP.md {_PENDING[model_name]})")
     if model_name not in SUPPORTED:
         raise ValueError(f"unknown model {model_name!r}")
     was_training = model.training
@@ -147,11 +144,22 @@ def _zoo(model_name, model, x_all, eng):
     convs = [getattr(model, f"conv{i}") for i in range(L)]
     emb = x_all
 
-    if model_name in ("SAGE", "SAGEClassic"):
+    if model_name in ("SAGE", "SAGEClassic", "GAT"):
         for i, conv in enumerate(convs):
             def core(x, edge, n, conv=conv, last=i == L - 1):
                 h = conv(x, x[:n], edge, n)
                 return h if last else torch.relu(h)
+
+            emb = propagate(core, emb, conv.out_features)
+        return _finish(emb)
+
+    if model_name == "GCN":
+        for i, conv in enumerate(convs):
+            bn = None if i == L - 1 else getattr(model, f"bn{i}")
+
+            def core(x, edge, n, conv=conv, bn=bn):
+                h = conv(x, edge, n)
+                return h if bn is None else torch.relu(bn(h))
 
             emb = propagate(core, emb, conv.out_features)
         return _finish(emb)

@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.segment import valid_mask
+from ..ops.gat_agg import (gat_attention_agg, gat_attention_agg_autodiff,
+                           gat_custom_agg_enabled)
+from ..ops.segment import gather_rows, masked_segment_sum, valid_mask
 from ..ops.sorted_segment import spmm_agg
 from ..sampling.batch import EdgeBlock
 
@@ -32,6 +34,16 @@ def _agg(x: torch.Tensor, edge: EdgeBlock, out_cap: int, mean: bool):
     CUDA tensor (scatter-free forward, mirrored backward), its plain
     version on a CPU tensor."""
     return spmm_agg(x, edge, out_cap, mean=mean)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` semantics with an explicit generator: keep with
+    probability 1-p and scale kept values by 1/(1-p)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class Dense(nn.Module):
@@ -93,6 +105,121 @@ class SAGEConv(nn.Module):
     def forward(self, x, x_target, edge: EdgeBlock, out_cap: int):
         agg = _agg(x, edge, out_cap, mean=True)
         return self.lin_l(agg) + self.lin_r(x_target)
+
+
+class GATConv(nn.Module):
+    """Graph attention conv, PyG GATConv semantics with concatenated heads,
+    no bias (as the zoo's GAT builds it) and ``add_self_loops=True``: on the
+    reference's bipartite hop every target also attends to itself (input
+    row i < T is target i under the prefix convention).
+
+    Default path (``ops/gat_agg.py::gat_attention_agg_autodiff``):
+    attention logits gathered per edge, the self-inclusive softmax, the
+    weighted message sum by the sorted segment-sum kernel (K1 forward,
+    masked-gather backward) and the self term; autograd does the rest.
+    With ``SPTPU_GAT_CUSTOM_VJP=1`` and a hop that carries its src-sorted
+    mirror, the block with the hand-derived backward (``gat_attention_agg``)
+    runs instead, as in the JAX package."""
+
+    def __init__(self, in_features: int, features: int, heads: int = 1,
+                 negative_slope: float = 0.2,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.heads, self.features = heads, features
+        self.negative_slope = negative_slope
+        self.dtype = dtype
+        self.lin_src = _dense(in_features, heads * features, False, dtype,
+                              generator)
+        # flax's xavier_uniform of a [1, H, C] kernel: fan_in H, fan_out C
+        a = math.sqrt(6.0 / (heads + features))
+        self.att_src = nn.Parameter(
+            torch.empty(1, heads, features).uniform_(-a, a,
+                                                     generator=generator))
+        self.att_dst = nn.Parameter(
+            torch.empty(1, heads, features).uniform_(-a, a,
+                                                     generator=generator))
+
+    @property
+    def out_features(self) -> int:
+        return self.heads * self.features
+
+    def forward(self, x, x_target, edge: EdgeBlock, out_cap: int):
+        H, C = self.heads, self.features
+        xs = self.lin_src(x).view(-1, H, C)
+        xt = self.lin_src(x_target).view(-1, H, C)
+        alpha_src = (xs * self.att_src.to(self.dtype)).sum(-1)   # [N_in, H]
+        alpha_dst = (xt * self.att_dst.to(self.dtype)).sum(-1)   # [T, H]
+        ns = self.negative_slope
+        if gat_custom_agg_enabled() and edge.msrc is not None:
+            out = gat_attention_agg(
+                out_cap, ns, xs, xt, alpha_src.float(), alpha_dst.float(),
+                edge.src, edge.dst, edge.count, edge.msrc, edge.mdst)
+        else:
+            out = gat_attention_agg_autodiff(
+                out_cap, ns, xs, xt, alpha_src, alpha_dst, edge.src,
+                edge.dst, edge.count)
+        return out.reshape(-1, H * C).to(self.dtype)
+
+
+class GCNConv(nn.Module):
+    """PyG GCNConv with normalize=False, bias=False, as the reference
+    builds it: out = Σ_{j∈N(i)} (x W)_j over the hop. With the hop's mirror
+    (GCN's specs mirror every hop) the sum runs K1 forward by dst and K1
+    backward by msrc; without one (layerwise inference), K2."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lin = _dense(in_features, features, False, dtype, generator)
+
+    @property
+    def out_features(self) -> int:
+        return self.lin.out_features
+
+    def forward(self, x, edge: EdgeBlock, out_rows: int):
+        h = self.lin(x)
+        return _agg(h, edge, out_rows, mean=False).to(h.dtype)
+
+
+class ARMAConv(nn.Module):
+    """ARMA_1 conv (1 stack, 1 layer, unshared weights), the JAX package's
+    documented equation: out = relu(norm_adj · (x W) + dropout(x) V) over
+    the input node set, with symmetric degree normalisation on the batch
+    subgraph. Degrees are summed in the compute dtype, as there (a bf16
+    count is exact up to 256). The scaled projection is gathered by the
+    row-gather kernel (K3, differentiable) and summed by ``index_add_``;
+    rows past ``out_rows`` are zero before the root term."""
+
+    def __init__(self, in_features: int, features: int, dropout: float = 0.5,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout, self.dtype = dropout, dtype
+        self.w = _dense(in_features, features, False, dtype, generator)
+        self.v = _dense(in_features, features, False, dtype, generator)
+
+    @property
+    def out_features(self) -> int:
+        return self.w.out_features
+
+    def forward(self, x, edge: EdgeBlock, out_rows: int,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        ones = valid_mask(edge.dst.shape[0], edge.count).to(self.dtype)
+        deg_dst = masked_segment_sum(ones, edge.dst, edge.count, out_rows)
+        deg_src = masked_segment_sum(ones, edge.src, edge.count, x.shape[0])
+        inv_sqrt_dst = torch.rsqrt(deg_dst.clamp_min(1.0))
+        inv_sqrt_src = torch.rsqrt(deg_src.clamp_min(1.0))
+        h = self.w(x)
+        msg = gather_rows(h * inv_sqrt_src[:, None], edge.src)
+        prop = masked_segment_sum(msg, edge.dst, edge.count, out_rows)
+        prop = prop * inv_sqrt_dst[:, None]
+        root = self.v(dropout(x, self.dropout, training, generator))
+        out = torch.cat([prop, prop.new_zeros(x.shape[0] - out_rows,
+                                              prop.shape[1])])
+        return torch.relu(out + root)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -1,8 +1,7 @@
 """The model zoo (counterpart of the JAX package's ``models/modules.py``).
 
-The SAGE/GIN family is ported: SAGE, SAGEClassic, GIN, JKNet and
-SAGEResInception. GCN, ARMA and GAT follow (ROADMAP.md) and ``make_model``
-raises for them.
+All eight models of the JAX package's zoo: SAGE, SAGEClassic, GIN, JKNet,
+SAGEResInception, GAT, GCN and ARMA.
 
 Call convention: ``model(x, batch, training=..., generator=...)`` (plus
 ``features=`` for the models whose layer 0 can read the table: SAGE,
@@ -23,18 +22,9 @@ from torch import nn
 
 from ..sampling.batch import PaddedBatch
 from .layers import (
-    GINConv, MLP, MaskedBatchNorm, SAGEConv, _lecun_dense,
+    ARMAConv, GATConv, GCNConv, GINConv, MLP, MaskedBatchNorm, SAGEConv,
+    _lecun_dense, dropout,
 )
-
-
-def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax ``nn.Dropout`` semantics with an explicit generator: keep with
-    probability 1-p and scale kept values by 1/(1-p)."""
-    if not training or p == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def _check_layers(model, batch: PaddedBatch) -> int:
@@ -229,15 +219,99 @@ class SAGEResInception(_GNNBase):
         return self._final(out, batch)
 
 
-MODEL_REGISTRY = {"SAGE": SAGE, "SAGEClassic": SAGEClassic, "GIN": GIN,
-                  "JKNet": JKNet, "SAGEResInception": SAGEResInception}
+class GAT(_GNNBase):
+    """Single-head GAT, bias-free convs."""
 
-# where each model of the JAX package's zoo is scheduled (ROADMAP.md)
-_PENDING = {
-    "GCN": "Queue 1 item 11",
-    "ARMA": "Queue 1 item 11",
-    "GAT": "Queue 1 item 12",
-}
+    def __init__(self, *args, generator: Optional[torch.Generator] = None,
+                 **kw):
+        super().__init__(*args, **kw)
+        L = self.num_layers
+        for i in range(L):
+            fin = self.in_features if i == 0 else self.hidden_features
+            fout = self.out_features if i == L - 1 else self.hidden_features
+            self.add_module(f"conv{i}", GATConv(fin, fout, heads=1,
+                                                dtype=self.dtype,
+                                                generator=generator))
+
+    def forward(self, x, batch: PaddedBatch, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x.to(self.dtype)
+        L = _check_layers(self, batch)
+        for i in range(L):
+            _, out_cap = batch.layer_caps(i)
+            x = getattr(self, f"conv{i}")(x, x[:out_cap], batch.edges[i],
+                                          out_cap)
+            if i != L - 1:
+                x = dropout(torch.relu(x), self.dropout, training, generator)
+        return self._final(x, batch)
+
+
+class GCN(_GNNBase):
+    """GCN with normalize=False, bias-free convs and masked BN between
+    layers. As in the reference (which passes the full x), each conv's
+    output keeps the input row count, zero above ``out_cap``; BN sees the
+    in-level's valid rows. A conv reads only the rows of its hop's input
+    level, so the mirrored backward drops the mirror's pads (msrc = that
+    level's cap) instead of adding them into the row past it."""
+
+    def __init__(self, *args, generator: Optional[torch.Generator] = None,
+                 **kw):
+        super().__init__(*args, **kw)
+        L = self.num_layers
+        for i in range(L):
+            fin = self.in_features if i == 0 else self.hidden_features
+            fout = self.out_features if i == L - 1 else self.hidden_features
+            self.add_module(f"conv{i}", GCNConv(fin, fout, dtype=self.dtype,
+                                                generator=generator))
+            if i != L - 1:
+                self.add_module(f"bn{i}", MaskedBatchNorm(fout, self.dtype))
+
+    def forward(self, x, batch: PaddedBatch, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x.to(self.dtype)
+        L = _check_layers(self, batch)
+        for i in range(L):
+            in_cap, out_cap = batch.layer_caps(i)
+            h = getattr(self, f"conv{i}")(x[:in_cap], batch.edges[i],
+                                          out_cap)
+            x = torch.cat([h, h.new_zeros(in_cap - out_cap, h.shape[1])])
+            if i != L - 1:
+                x = getattr(self, f"bn{i}")(x, batch.level_sizes[L - i])
+                x = dropout(torch.relu(x), self.dropout, training, generator)
+        return self._final(x, batch)
+
+
+class ARMA(_GNNBase):
+    """ARMA_1 stack (flagged broken in the reference; provided for API
+    parity, as in the JAX package). The last conv keeps the hidden width,
+    as the reference's does, so the log-softmax runs over ``hidden``
+    columns."""
+
+    def __init__(self, *args, generator: Optional[torch.Generator] = None,
+                 **kw):
+        super().__init__(*args, **kw)
+        H = self.hidden_features
+        for i in range(self.num_layers):
+            self.add_module(f"conv{i}", ARMAConv(
+                self.in_features if i == 0 else H, H, dropout=self.dropout,
+                dtype=self.dtype, generator=generator))
+
+    def forward(self, x, batch: PaddedBatch, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x.to(self.dtype)
+        L = _check_layers(self, batch)
+        for i in range(L):
+            _, out_cap = batch.layer_caps(i)
+            x = getattr(self, f"conv{i}")(x, batch.edges[i], out_cap,
+                                          training, generator)
+            if i != L - 1:
+                x = dropout(torch.relu(x), self.dropout, training, generator)
+        return self._final(x, batch)
+
+
+MODEL_REGISTRY = {"SAGE": SAGE, "SAGEClassic": SAGEClassic, "GIN": GIN,
+                  "JKNet": JKNet, "SAGEResInception": SAGEResInception,
+                  "GAT": GAT, "GCN": GCN, "ARMA": ARMA}
 
 
 def make_model(name: str, in_features: int, hidden_features: int,
@@ -246,9 +320,6 @@ def make_model(name: str, in_features: int, hidden_features: int,
                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build a model of the zoo on the CPU with float32 parameters;
     ``generator`` draws the initial weights."""
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"model {name} is not ported yet: ROADMAP.md {_PENDING[name]}")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model {name!r}")
     return MODEL_REGISTRY[name](in_features, hidden_features, out_features,

@@ -9,8 +9,11 @@ function is the hand-written CUDA kernel ``csrc/gather_rows.cu``: one warp
 per output row copies the row as bytes (16-byte vectors where the row
 width and both pointers allow), so any dtype works.
 
-Its targets are the feature assembly ``features[n_id]`` of a train step
-and the per-chunk gather of layerwise inference.
+Its targets are the feature assembly ``features[n_id]`` of a train step,
+the per-chunk gather of layerwise inference and ARMA's gather of the
+scaled projection ``h * deg_src^-1/2``, which needs a gradient: on the
+card the kernel runs inside a ``torch.autograd.Function`` whose backward
+adds the incoming rows back with ``index_add_``.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 ``_gather_rows_plain``. There is no fallback between the two. Every index
@@ -36,12 +39,8 @@ def _gather_rows_plain(table: torch.Tensor, idx: torch.Tensor
     return table.index_select(0, idx)
 
 
-def pallas_gather_rows(table: torch.Tensor, idx: torch.Tensor
-                       ) -> torch.Tensor:
-    """``table[idx]`` for a 2-d table of any dtype and int32 ``idx`` [n].
-    The name is the JAX package's; no Pallas is involved."""
-    if table.device.type == "cpu" and idx.device.type == "cpu":
-        return _gather_rows_plain(table, idx)
+def _launch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Check the inputs and launch the kernel into a fresh output."""
     if table.device.type != "cuda":
         raise ValueError(f"pallas_gather_rows: unsupported device "
                          f"{table.device}")
@@ -63,6 +62,38 @@ def pallas_gather_rows(table: torch.Tensor, idx: torch.Tensor
                   idx.data_ptr(), idx.shape[0], row_bytes, out.data_ptr())
     pallas_gather_rows.launches += 1
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """The kernel forward; the backward is the transpose of the gather,
+    ``index_add_`` of the incoming rows into a zero [N, F] table in f32,
+    cast to the table's dtype (XLA's transpose of ``take`` in the JAX
+    package: no Pallas kernel)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.num_rows = table.shape[0]
+        ctx.table_dtype = table.dtype
+        ctx.save_for_backward(idx)
+        return _launch(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        d = torch.zeros(ctx.num_rows, g.shape[1], dtype=torch.float32,
+                        device=g.device)
+        d.index_add_(0, idx.long(), g.float())
+        return d.to(ctx.table_dtype), None
+
+
+def pallas_gather_rows(table: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """``table[idx]`` for a 2-d table of any dtype and int32 ``idx`` [n],
+    differentiable in ``table`` on both devices. The name is the JAX
+    package's; no Pallas is involved."""
+    if table.device.type == "cpu" and idx.device.type == "cpu":
+        return _gather_rows_plain(table, idx)
+    return _GatherRows.apply(table, idx)
 
 
 pallas_gather_rows.launches = 0

@@ -108,18 +108,22 @@ class BatchSpec:
         return cls(tuple(fanouts), batch_size, tuple(node_caps), tuple(edge_caps))
 
 
-# Models that differentiate a projection of the raw input need the
-# outermost hop's mirror too. None of them is ported yet (slice 2); the
-# list is the JAX package's, so specs stay identical once they are.
+# Models that differentiate a projection of the raw input (GCN, ARMA) need
+# the outermost hop's mirror too; so does GAT under its opt-in custom-VJP
+# attention (ops/gat_agg.py). The JAX package's rule, so specs stay
+# identical.
 MIRROR_ALL_MODELS = ("GCN", "ARMA")
 
 
 def mirror_all_specs(model_name: str, spec: BatchSpec,
                      tight: Optional[BatchSpec] = None):
     """Apply the model-dependent ``mirror_all`` flag to a calibrated
-    (spec, tight) pair. GAT's opt-in custom-VJP attention, which also
-    asks for it in the JAX package, is not ported."""
-    if model_name in MIRROR_ALL_MODELS:
+    (spec, tight) pair. Mutually exclusive with gsrc mode, which only the
+    SAGE family and GIN enable."""
+    from ..ops.gat_agg import gat_custom_agg_enabled
+
+    if model_name in MIRROR_ALL_MODELS or (
+            model_name == "GAT" and gat_custom_agg_enabled()):
         spec = dataclasses.replace(spec, mirror_all=True)
         if tight is not None:
             tight = dataclasses.replace(tight, mirror_all=True)

@@ -2,13 +2,15 @@
 (counterpart of the JAX package's ``train/loop.py``).
 
 This slice has the all-in-memory path: the whole feature table sits on
-the device in bf16, and the final test is batchwise or layerwise. The host
-cold tier (``hbm_fraction < 1``) and checkpoints come in later slices
-(ROADMAP.md) and raise here.
+the device in bf16, and the final test is batchwise or layerwise. A trial
+with a checkpoint directory saves on each new best validation accuracy and
+resumes from its latest checkpoint under ``RESUME=1``. The host cold tier
+(``hbm_fraction < 1``) comes in a later slice (ROADMAP.md) and raises here.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -26,6 +28,7 @@ from ..sampling.shufflers import Shuffler
 from ..utils.device import resolve_device, synchronize
 from ..utils.logging import RunLogger
 from ..utils.timing import RuntimeStats
+from . import checkpoint as ckpt
 from .pipeline import DeviceFeeder
 from .state import ReduceLROnPlateau, TrainState, create_train_state
 from .step import eval_step, train_step
@@ -115,9 +118,6 @@ def _reject_unported(cfg: RunConfig) -> None:
     if cfg.collect_data:
         raise NotImplementedError(
             "collect_data (DataCollector): ROADMAP.md Queue 1 item 8")
-    if cfg.async_checkpoint:
-        raise NotImplementedError(
-            "async_checkpoint (checkpoints): ROADMAP.md Queue 1 item 8")
 
 
 class Trainer:
@@ -346,23 +346,40 @@ class Trainer:
     def _trial_reset(self, trial: int):
         self.reset(trial_seed=trial)
 
-    def run_trial(self, trial: int = 0) -> TrialResult:
-        """Epoch loop with best-validation tracking."""
-        return run_trial_impl(self, trial)
+    def run_trial(self, trial: int = 0,
+                  checkpoint_dir: Optional[str] = None) -> TrialResult:
+        """Epoch loop with best-validation tracking and, with
+        ``checkpoint_dir``, checkpoints and ``RESUME=1``."""
+        return run_trial_impl(self, trial, checkpoint_dir)
 
 
-def run_trial_impl(trainer, trial: int = 0) -> TrialResult:
+def run_trial_impl(trainer, trial: int = 0,
+                   checkpoint_dir: Optional[str] = None) -> TrialResult:
     """THE trial loop: epochs, periodic validation, best-snapshot
-    tracking (in memory) and the final test scored from the best
-    snapshot, batchwise or layerwise (``final_test_mode``). Checkpoint IO
-    waits for ROADMAP.md Queue 1 item 8."""
+    tracking, checkpoints, the ``RESUME=1`` restart and the final test
+    scored from the best snapshot, batchwise or layerwise
+    (``final_test_mode``).
+
+    With ``checkpoint_dir``: each new best validation accuracy saves the
+    train state there (``use_async=cfg.async_checkpoint``), and with
+    ``RESUME=1`` the trial restores its latest checkpoint and starts at the
+    epoch after it. As in the JAX package, the best accuracy and the
+    plateau scheduler start afresh in a resumed run."""
     cfg = trainer.cfg
     trainer._trial_reset(trial)
     res = TrialResult()
     best_state = None
     scheduler = (ReduceLROnPlateau(cfg.lrs_factor, cfg.effective_patience)
                  if cfg.use_lrs else None)
-    for epoch in range(cfg.epochs):
+    start_epoch = 0
+    if checkpoint_dir and os.environ.get("RESUME", "0") == "1":
+        resume = ckpt.latest_epoch(checkpoint_dir, trial)
+        if resume is not None:
+            trainer.state = ckpt.restore(checkpoint_dir, trainer.state,
+                                         trial, resume)
+            start_epoch = resume + 1
+            trainer.logger.log("resumed", trial, resume)
+    for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         loss = trainer.train_epoch(epoch)
         dt = time.perf_counter() - t0
@@ -380,6 +397,12 @@ def run_trial_impl(trainer, trial: int = 0) -> TrialResult:
                 res.best_epoch = epoch
                 best_state = {k: v.detach().clone() for k, v in
                               trainer.state.model.state_dict().items()}
+                if checkpoint_dir:
+                    ckpt.save(checkpoint_dir, trainer.state, trial=trial,
+                              epoch=epoch, acc=acc,
+                              use_async=cfg.async_checkpoint)
+    if cfg.async_checkpoint:
+        ckpt.wait_for_async_saves()
     if best_state is not None:
         # score the best-validation model, not the last epoch
         trainer.state.model.load_state_dict(best_state)

@@ -5,8 +5,10 @@ tree_map(np.asarray, variables["params"])`` gives one), and the port's
 modules carry the flax names, so a path maps to a state_dict key:
 
 - params: a Dense ``kernel`` [in, out] is the port's ``weight`` [out, in];
-  a ``bias`` and a BatchNorm ``scale`` carry as they are
-  (``params["conv0"]["lin_l"]["kernel"]`` is ``conv0.lin_l.weight``);
+  a ``bias``, a BatchNorm ``scale`` and GAT's attention vectors
+  ``att_src``/``att_dst`` [1, H, C] carry as they are
+  (``params["conv0"]["lin_l"]["kernel"]`` is ``conv0.lin_l.weight``,
+  ``params["conv0"]["att_src"]`` is ``conv0.att_src``);
 - batch_stats: a BatchNorm's running ``mean`` and ``var`` are the port's
   buffers of the same names (``batch_stats["conv0"]["bn"]["mean"]`` is
   ``conv0.bn.mean``).
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 _STATS = ("mean", "var")
+# param leaves that carry unchanged in both directions
+_AS_IS = ("bias", "scale", "att_src", "att_dst")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -57,7 +61,7 @@ def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             out[".".join(mod + ["weight"])] = torch.from_numpy(
                 np.ascontiguousarray(a.T))
-        elif leaf in ("bias", "scale"):
+        elif leaf in _AS_IS:
             out[".".join(path)] = torch.from_numpy(a.copy())
         else:
             raise KeyError(f"no port counterpart for flax param "
@@ -75,7 +79,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             continue
         if leaf == "weight":
             pairs.append((mod + ["kernel"], np.ascontiguousarray(_f32(t).T)))
-        elif leaf in ("bias", "scale"):
+        elif leaf in _AS_IS:
             pairs.append((mod + [leaf], _f32(t).copy()))
         else:
             raise KeyError(f"no flax counterpart for {key}")

@@ -328,3 +328,133 @@ def test_layerwise_on_card_matches_cpu(cuda_device, name):
     assert A.fused_gather_segment_sum.launches - k2 == 6 * 2
     assert G.pallas_gather_rows.launches - k3 == 6 * 2
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernel_gradient_matches_index_select(cuda_device, dtype):
+    """K3 on a table that requires grad is differentiable on the card, as
+    ``index_select`` is on the CPU: its backward adds the incoming rows
+    back (repeated ids too) with ``index_add_`` in f32, cast to the
+    table's dtype. The kernel launches once for the forward. f32: card
+    and CPU agree within 1e-4 (summation order). bf16: the incoming rows
+    are bf16, summed in f32 and rounded once, so the card's gradient lies
+    within one bf16 rounding (2^-8 relative) of their float64 sum; the
+    CPU's sums in bf16 and is not that reference."""
+    from salient_plusplus_tpu_torch.ops.segment import gather_rows
+
+    rng = np.random.default_rng(3)
+    N, F, n = 500, 96, 2000
+    table = torch.from_numpy(rng.standard_normal((N, F)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, N, n).astype(np.int32))
+    w = torch.from_numpy(rng.standard_normal((n, F)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev, dtype).detach().clone().requires_grad_(True)
+        n0 = G.pallas_gather_rows.launches
+        out = gather_rows(t, idx.to(dev))
+        assert out.grad_fn is not None
+        if dev != "cpu":
+            assert G.pallas_gather_rows.launches == n0 + 1
+        (out.float() * w.to(dev)).sum().backward()
+        grads.append(t.grad.float().cpu())
+    if dtype == torch.float32:
+        torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-4)
+    else:
+        rows = w.to(dtype).double()
+        exact = torch.zeros(N, F, dtype=torch.float64).index_add_(
+            0, idx.long(), rows).float()
+        torch.testing.assert_close(grads[1], exact, rtol=2**-8, atol=1e-6)
+    assert grads[1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("case", [(4096, 512, 1024, 3900, 1, 256),
+                                  (2048, 256, 600, 2048, 2, 32),
+                                  (1024, 128, 256, 0, 1, 64)])
+def test_gat_attention_agg_on_card_matches_cpu(cuda_device, case):
+    """The custom-VJP attention block on the card (K1 forward and K1 over
+    the mirror for d_xs) against the CPU's plain versions, f32: summation
+    order only, 1e-4."""
+    from salient_plusplus_tpu_torch.ops.gat_agg import gat_attention_agg
+
+    E, T, N, n, H, C = case
+    rng = np.random.default_rng(E + n)
+    dst = np.sort(rng.integers(0, T, n)).astype(np.int32)
+    src = rng.integers(0, N, n).astype(np.int32)
+    order = np.argsort(src, kind="stable")
+    idx = [np.concatenate([a, np.full(E - n, p, np.int32)]) for a, p in (
+        (src, 0), (dst, T), (src[order], N), (dst[order], 0))]
+    floats = [rng.standard_normal(s).astype(np.float32) for s in
+              ((N, H, C), (T, H, C), (N, H), (T, H))]
+    g = torch.from_numpy(rng.standard_normal((T, H, C)).astype(np.float32))
+    res = []
+    for dev in ("cpu", cuda_device):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True)
+              for a in floats]
+        s, d, ms, md = (torch.from_numpy(a).to(dev) for a in idx)
+        k1 = S.sorted_segment_sum_mxu.launches
+        out = gat_attention_agg(T, 0.2, *ts, s, d,
+                                torch.tensor(n, dtype=torch.int32,
+                                             device=dev), ms, md)
+        (out * g.to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert S.sorted_segment_sum_mxu.launches == k1 + 2
+        res.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for a, b in zip(*res):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["GAT", "GAT-custom", "GCN", "ARMA"])
+def test_model_step_on_card_matches_cpu(cuda_device, name, monkeypatch):
+    """One train step of GAT (autodiff and custom-VJP attention), GCN and
+    ARMA from the same weights and batch, on the card (kernels) and on the
+    CPU (plain versions): float32 with TF32 off, dropout 0, so the two
+    differ in summation order only. Loss within 1e-5, each gradient
+    within 1e-3 relative (Frobenius) error; the card's step launches K1 and
+    K3 (GAT and GCN: K1 once per hop forward; GCN also per hop backward;
+    ARMA: K3 once per hop)."""
+    from salient_plusplus_tpu_torch.data import synthetic
+    from salient_plusplus_tpu_torch.models import make_model
+    from salient_plusplus_tpu_torch.sampling.batch import (BatchSpec,
+                                                           mirror_all_specs)
+    from salient_plusplus_tpu_torch.sampling.cpp import NativeSampler
+    from salient_plusplus_tpu_torch.train.state import TrainState
+    from salient_plusplus_tpu_torch.train.step import train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model_name = name.split("-")[0]
+    monkeypatch.setenv("SPTPU_GAT_CUSTOM_VJP",
+                       "1" if name.endswith("custom") else "")
+    g = synthetic.planted_partition("cuda-m", num_nodes=3000, num_classes=6,
+                                    avg_degree=10, num_features=24, seed=4)
+    spec = mirror_all_specs(model_name,
+                            BatchSpec.worst_case(128, [6, 4, 3]))[0]
+    b = NativeSampler(np.asarray(g.rowptr), np.asarray(g.col)).sample(
+        spec, np.sort(g.split_idx["train"][:128]), rng_seed=2,
+        y_global=np.asarray(g.y, np.int32))
+    feats = torch.from_numpy(np.asarray(g.x, np.float32))
+    model = make_model(model_name, 24, 64, 6, 3, dropout=0.0,
+                       dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = make_model(model_name, 24, 64, 6, 3, dropout=0.0,
+                       dtype=torch.float32)
+        m.load_state_dict(sd)
+        st = TrainState(m.to(dev), 0.003, seed=0, device=torch.device(dev))
+        k1 = S.sorted_segment_sum_mxu.launches
+        k3 = G.pallas_gather_rows.launches
+        loss = float(train_step(st, feats.to(dev), b.to(dev)))
+        out[str(dev)] = (loss, {k: p.grad.detach().cpu() for k, p in
+                                m.named_parameters()})
+        if dev != "cpu":
+            k1 = S.sorted_segment_sum_mxu.launches - k1
+            k3 = G.pallas_gather_rows.launches - k3
+            want_k1 = {"GAT": 3, "GAT-custom": 6, "GCN": 6, "ARMA": 0}[name]
+            assert (k1, k3) == (want_k1, 4 if name == "ARMA" else 1)
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda_device)]
+    assert abs(lc - lg) < 1e-5, (lc, lg)
+    for k in gc:
+        rel = float((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-12))
+        assert rel < 1e-3, (k, rel)

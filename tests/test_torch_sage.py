@@ -157,6 +157,9 @@ def test_sage_gsrc_equals_frontier_gather():
 
 
 def test_unported_models_raise():
+    """The whole zoo is ported: the three models that raised before build,
+    and a name outside the zoo raises."""
     for name in ("GAT", "GCN", "ARMA"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(name, 8, 8, 2, 2)
+        assert make_model(name, 8, 8, 2, 2).num_layers == 2
+    with pytest.raises(ValueError, match="unknown model"):
+        make_model("GraphTransformer", 8, 8, 2, 2)

@@ -148,9 +148,9 @@ def test_driver_cli_runs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--distribute_data", "true"], ["--hbm_fraction", "0.5"],
-    ["--model_name", "GCN"],
+    ["--train_sampler", "FastPreSampler"],
     ["--execution_mode", "communication_simulation"],
-    ["--do_test_run", "0"], ["--model_name", "GAT"],
+    ["--collect_data", "true"], ["--train_sampler", "OracleSampler"],
 ])
 def test_driver_rejects_what_later_slices_bring(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -188,6 +188,10 @@ def test_port_imports_no_jax():
                                                "salient_plusplus_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for new in ("ops/gat_agg.py", "train/checkpoint.py", "models/layers.py",
+                "models/inference.py"):
+        assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
