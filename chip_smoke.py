@@ -46,7 +46,19 @@ them.
    steps at the same shape, with their profiles;
 6. card against CPU: one train step from the same weights and batch
    (SAGE in bf16, GAT and GCN in f32), and layerwise inference of a
-   20k-node graph at the same width.
+   20k-node graph at the same width;
+7. the host cold tier (``hbm_fraction 0.5``) on the bench graph: K1 as the
+   cold overlay of a ``--gsrc_mode off`` batch, bit-identical to the plain
+   version and to the all-in-memory gather, timed beside ``index_copy_``
+   and two bounds; SAGE in three variants (gsrc cold, a cold-row cache,
+   the fp8 tail) with phase 5's figures beside the 1.0 run's, the link
+   credit probe, the plan of ``cold_cache_slots -1``, the pinned bytes of
+   the buffer pool, the fp8 decode against the CPU's, and 20 steps at 0.5
+   and 1.0 with bit-identical losses; then the driver at
+   ``--hbm_fraction 0.5`` (SAGE under the cache policy and with a
+   layerwise final test, GCN, the cache with the folded update, fp8 with
+   collect_data, FastPreSampler) and with ``--train_sampler
+   OracleSampler``.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -54,6 +66,7 @@ kernel summary JSON and the nvidia-smi name/power-limit line.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import subprocess
@@ -690,10 +703,12 @@ def train_steps(V: int) -> int:
     return -(-int(0.6 * V) // 1024)
 
 
-def phase_driver(dev, V=100_000, C=32, extra=(), floor=None):
+def phase_driver(dev, V=100_000, C=32, extra=(), floor=None,
+                 inspect=None):
     """One epoch through the driver CLI on the planted graph; returns the
     epoch's train steps. ``floor``: the least final_valid (chance by
-    default)."""
+    default); ``inspect(out_root)`` looks at the run's output directory
+    before it is removed."""
     from salient_plusplus_tpu_torch import driver
 
     floor = 1.0 / C if floor is None else floor
@@ -701,6 +716,8 @@ def phase_driver(dev, V=100_000, C=32, extra=(), floor=None):
         out = driver.main([f"synth:V={V},C={C},deg=12,F=64", "smoke",
                            "--epochs", "1", "--output_root", out_root,
                            *extra], device=dev)
+        if inspect is not None:
+            inspect(out_root)
     r = out[0]
     log(f"  driver {' '.join(extra)}: losses={r['losses']} "
         f"final_valid={r['final_valid']:.4f} "
@@ -873,6 +890,8 @@ def phase_bench(trainer, dev, power, warmup=20, steps=40):
         torch.cuda.synchronize(dev)
     e0, b0, s0 = feeder.edges_fed, feeder.bytes_fed, feeder.starved_dur
     n0 = {k: w.launches for k, w in _wrappers().items()}
+    cache = trainer._cold_cache
+    c0 = (cache.hits, cache.misses) if cache is not None else None
     t0 = time.perf_counter()
     losses = [trainer.run_step(next(feeder)) for _ in range(steps)]
     if dev.type == "cuda":
@@ -894,10 +913,15 @@ def phase_bench(trainer, dev, power, warmup=20, steps=40):
                launches_per_step=per_step,
                max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None))
+    if trainer.hot_cutoff is not None:
+        res["cold_rows_per_batch"] = st.cold_rows / max(st.batches, 1)
+        if cache is not None:
+            h, m = cache.hits - c0[0], cache.misses - c0[1]
+            res["cache_hit_rate"] = h / max(h + m, 1)
     log("  bench: " + json.dumps(res) + f"  [{power}]")
     if dev.type == "cuda":
-        profile_window(lambda: trainer.run_step(next(feeder)), 10, "steps",
-                       power)
+        res["profile"] = profile_window(
+            lambda: trainer.run_step(next(feeder)), 10, "steps", power)
     it.close()
     return res
 
@@ -930,7 +954,7 @@ def profile_window(work, steps, unit, power):
     if not ivs:
         log(f"  profile: no device time recorded ({steps} {unit}, "
             f"{wall_ms:.1f} ms on the host clock)")
-        return
+        return None
     ivs.sort()
     busy, (s0, e0) = 0.0, ivs[0]
     for s, e in ivs[1:]:
@@ -951,6 +975,8 @@ def profile_window(work, steps, unit, power):
     for name, us in top:
         log(f"    {us / steps / 1e3:8.4f} ms/{u}  {us / busy:6.1%}  "
             f"{name[:100]}")
+    return dict(busy_ms=busy / steps / 1e3, window_ms=window / steps / 1e3,
+                idle_share=1 - busy / window)
 
 
 def phase_layerwise_bench(trainer, dev, power):
@@ -1103,6 +1129,262 @@ def phase_layerwise_card_vs_cpu(dev, V=20_000):
     check(err <= 1e-3, f"layerwise card vs cpu: max error {err}")
 
 
+# ---------------------------------------------------------------- phase 7
+COLD_FRACTION = 0.5
+
+
+def cold_trainer(base, dev, **kw):
+    """A trainer of ``base``'s config and graph at hbm_fraction 0.5 (the
+    host cold tier), with ``kw`` on top."""
+    from salient_plusplus_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(base.cfg.replace(hbm_fraction=COLD_FRACTION, **kw),
+                 base.graph, device=dev)
+    cache = tr._cold_cache
+    log(f"  cold trainer {kw} built in {time.perf_counter() - t0:.1f} s: "
+        f"hot_cutoff={tr.hot_cutoff} cold_cap={tr.train_sampler.cfg.cold_cap}"
+        f" slack={tr._slack} gsrc={tr._gsrc_cold} "
+        f"cache_slots={None if cache is None else cache.slots} x_cold "
+        f"{tr.x_cold.dtype} {tr.x_cold.shape}")
+    return tr
+
+
+def phase_cold_overlay(base, dev, power):
+    """K1 as the cold overlay (its caller in ``gather_features`` under
+    ``--gsrc_mode off``): one bench-shape batch at hbm_fraction 0.5; the
+    frontier gather (K3 over the hot prefix, then K1 placing the cold rows)
+    against the CPU's plain version and the all-in-memory gather
+    ``features_full[n_id]``, bit for bit; K1 against its plain version,
+    exact (one row a segment); then K1's time, the plain version's, the
+    library call's for this caller (``index_copy_`` of the real cold rows
+    into x) and the whole overlay's (K1, the presence mask and the
+    select), beside two bounds: K1's own (the real rows and their ids
+    read, the [T, F] f32 output written) and the overlay's work (the real
+    rows read and written once)."""
+    from salient_plusplus_tpu_torch.ops.sorted_segment import (
+        _sorted_degrees, _sorted_segment_sum_plain, sorted_segment_sum_mxu)
+    from salient_plusplus_tpu_torch.train.step import (_cold_rows,
+                                                       gather_features)
+
+    tr = cold_trainer(base, dev, gsrc_mode="off")
+    batch = bench_batch(tr, dev)
+    K1 = sorted_segment_sum_mxu
+    wrappers = _wrappers()
+    n0 = {k: w.launches for k, w in wrappers.items()}
+    x = gather_features(tr.features, batch)
+    torch.cuda.synchronize()
+    got = {k: w.launches - n0[k] for k, w in wrappers.items()}
+    check(got == {"sorted_segment_sum": 1, "fused_gather_segment_sum": 0,
+                  "gather_rows": 1}, f"overlay gather launches {got}")
+    x_cpu = gather_features(tr.features.cpu(), batch.to("cpu"))
+    full = base.features.index_select(0, batch.n_id.long())
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    check(torch.equal(bits(x).cpu(), bits(x_cpu)),
+          "overlay on the card differs from the CPU's plain version")
+    check(torch.equal(bits(x), bits(full)),
+          "overlay differs from the all-in-memory gather")
+    rows, pos = _cold_rows(batch, x.dtype), batch.cold_pos
+    T, (E, F) = x.shape[0], rows.shape
+    n = int(batch.cold_count)
+    placed = K1(rows, pos, T)
+    check(torch.equal(placed, _sorted_segment_sum_plain(rows, pos, T)),
+          "K1 placement differs from its plain version")
+    hot = tr.features
+    x0 = hot.index_select(0, batch.n_id.clamp(max=hot.shape[0] - 1))
+
+    def overlay():
+        mask = _sorted_degrees(pos, T) > 0
+        return torch.where(mask[:, None], K1(rows, pos, T).to(x0.dtype), x0)
+
+    check(torch.equal(bits(overlay()), bits(full)), "timed overlay differs")
+    ms = cuda_ms(lambda: K1(rows, pos, T))
+    plain_ms = cuda_ms(lambda: _sorted_segment_sum_plain(rows, pos, T))
+    scratch, idx, real = x0.clone(), pos[:n].long(), rows[:n]
+    lib = cuda_ms(lambda: scratch.index_copy_(0, idx, real))
+    check(torch.equal(bits(scratch), bits(full)), "index_copy_ differs")
+    overlay_ms = cuda_ms(overlay)
+    k1_bytes = n * F * 2 + 4 * n + T * F * 4
+    work_bytes = 2 * n * F * 2
+    tight = batch.spec == tr.train_tight
+    res = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+               bound_ms=_ms_of_bytes(k1_bytes), overlay_ms=overlay_ms,
+               overlay_bound_ms=_ms_of_bytes(work_bytes), E=E, n=n, T=T,
+               F=F, bucket="tight" if tight else "full")
+    log(f"  K1 cold overlay (gsrc off, hbm_fraction {COLD_FRACTION}): E={E} "
+        f"(cold_cap) real={n} T={T} ({res['bucket']} bucket) F={F} bf16: "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"index_copy_ms={lib:.4f} K1_bound_us={res['bound_ms'] * 1e3:.2f} "
+        f"({k1_bytes} B) overlay_ms={overlay_ms:.4f} (K1 + mask + select "
+        f"over the gathered frontier) overlay_work_bound_us="
+        f"{res['overlay_bound_ms'] * 1e3:.2f} ({work_bytes} B) "
+        f"{shares(ms, lib, res['bound_ms'])}; bit-identical to the plain "
+        f"version and to features_full[n_id]  [{power}]")
+    del tr, batch
+    return res
+
+
+def phase_cold_bit_equal(full, cold, dev, steps=20):
+    """``steps`` train steps of epoch 0 from fresh weights (the same seed)
+    at hbm_fraction 1.0 and 0.5 on the card: the losses must be equal bit
+    for bit (every op of the path is deterministic: K1 and K2 by design,
+    K3 a copy, the slack write a copy, the GEMMs)."""
+    from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
+
+    out = []
+    for tr in (full, cold):
+        tr.reset()
+        ts = tr.train_sampler
+        ts.set_epoch(tr.shuffler.get_idx(0), 0)
+        it = iter(ts)
+        feeder = DeviceFeeder(it, dev, depth=4)
+        out.append(torch.stack([tr.run_step(next(feeder))
+                                for _ in range(steps)]).cpu())
+        it.close()
+    same = out[0] == out[1]
+    first = int((~same).nonzero()[0]) if not bool(same.all()) else None
+    log(f"  {steps} SAGE steps at hbm_fraction 1.0 and {COLD_FRACTION}: "
+        f"losses {'bit-identical' if first is None else 'DIFFER'} "
+        f"(first {out[0][0].item():.9f}, last {out[0][-1].item():.9f})")
+    if first is not None:
+        check(False, f"losses differ from step {first}: "
+              f"{out[0][first].item()!r} vs {out[1][first].item()!r}")
+
+
+def pinned_cold_bytes(tr):
+    """(sets, bytes): the pinned host bytes of the cold buffers of one
+    epoch's buffer pool, sets x cold_cap x (row + position [+ fp8
+    scale]), at the current epoch's length."""
+    cfg = tr.train_sampler.cfg
+    pool = min(cfg.max_batches_in_flight + cfg.num_workers,
+               max(2, len(tr.train_sampler) + 1))
+    row = tr.x_cold.shape[1] * tr.x_cold.itemsize + 4
+    if tr.x_cold_scale is not None:
+        row += 4
+    cap = cfg.cold_cap if tr._cold_cache is None else max(cfg.cold_cap, 128)
+    return pool, pool * cap * row
+
+
+def phase_cold_bench(base, dev, power, full_res, **bench_kw):
+    """SAGE at the bench shape with the cold tail in host RAM
+    (hbm_fraction 0.5), three variants: plain gsrc cold (rows written
+    into the slack), a cold-row cache of about a quarter of the tail, and
+    the fp8 tail; each with phase 5's figures, beside the 1.0 run's. Also
+    the link credit probe, the plan cold_cache_slots -1 would choose, the
+    pinned bytes of the buffer pool, the fp8 decode on the card against
+    the CPU's, and the 20-step bit-equality against 1.0."""
+    from salient_plusplus_tpu_torch.parallel.exchange import fp8_decode_rows
+    from salient_plusplus_tpu_torch.train.cold_policy import (
+        measure_h2d_credit)
+
+    V = base.graph.num_nodes
+    tail = V - int(V * COLD_FRACTION)
+    quarter = -(-tail // 4 // 128) * 128
+    out = {}
+    for label, kw in (("gsrc cold", {}),
+                      ("cache 1/4 tail", {"cold_cache_slots": quarter}),
+                      ("fp8", {"cold_fp8": True})):
+        log(f"  SAGE at the bench shape, hbm_fraction {COLD_FRACTION}, "
+            f"{label}:")
+        tr = cold_trainer(base, dev, **kw)
+        if label == "gsrc cold":
+            credit = measure_h2d_credit(dev)
+            log(f"  measure_h2d_credit: {credit:.1f} MB/s (best of 3 "
+                f"pinned 32 MB bursts)  [{power}]")
+            slots = tr._plan_cold_cache(base.graph.split_idx["train"],
+                                        tr.train_sampler.cfg.cold_cap, V)
+            p = tr.cold_plan
+            log(f"  cold_cache_slots -1 would choose {slots} slots: demand "
+                f"{p.projected_demand_mbs} MB/s, residual "
+                f"{p.residual_demand_mbs} MB/s, credit {p.credit_mbs:.1f} "
+                f"MB/s ({p.reason})")
+            phase_cold_bit_equal(base, tr, dev)
+        if label == "fp8":
+            pay = torch.from_numpy(tr.x_cold[:200_000])
+            sc = torch.from_numpy(tr.x_cold_scale[:200_000])
+            check(torch.equal(fp8_decode_rows(pay.to(dev), sc.to(dev)).cpu(),
+                              fp8_decode_rows(pay, sc)),
+                  "fp8 decode on the card differs from the CPU's")
+            log("  fp8 decode of 200,000 cold rows on the card: "
+                "bit-identical to the CPU's")
+        res = phase_bench(tr, dev, power, **bench_kw)
+        sets, nbytes = pinned_cold_bytes(tr)
+        log(f"  pinned cold buffers of the pool: {sets} sets x cold_cap "
+            f"{tr.train_sampler.cfg.cold_cap} rows = {nbytes} B")
+        steps = res["launches_per_step"]
+        check(steps == {"sorted_segment_sum": 4,
+                        "fused_gather_segment_sum": 1, "gather_rows": 1},
+              f"cold bench step launches {steps}: K1 4, K2 1, K3 1 expected")
+        prof, fprof = res.get("profile") or {}, full_res.get("profile") or {}
+        log(f"  [{label} vs 1.0] step_ms {res['step_ms']:.3f} vs "
+            f"{full_res['step_ms']:.3f}; edges/s {res['edges_per_s']:.4g} vs "
+            f"{full_res['edges_per_s']:.4g}; H2D MB/batch "
+            f"{res['h2d_bytes_per_batch'] / 1e6:.3f} vs "
+            f"{full_res['h2d_bytes_per_batch'] / 1e6:.3f}; cold rows/batch "
+            f"{res['cold_rows_per_batch']:.1f}; cache hit rate "
+            f"{res.get('cache_hit_rate')}; device busy ms "
+            f"{prof.get('busy_ms')} vs {fprof.get('busy_ms')}; idle share "
+            f"{prof.get('idle_share')} vs {fprof.get('idle_share')}; "
+            f"launches/step {steps}  [{power}]")
+        out[label] = res
+        del tr
+    return out
+
+
+def phase_cold_drivers(dev, V=100_000, C=32):
+    """The driver CLI at --hbm_fraction 0.5 on the small planted graph,
+    one epoch each, final_valid at least 0.9: SAGE under the cache policy
+    (-1: it plans 0 slots where the link keeps up, so this is the plain
+    batchwise run), SAGE with a layerwise final test (which falls back to
+    batchwise and says so), GCN (K1 also places the cold rows: 6 + 1 a
+    step), the cold-row cache with the folded update, the fp8 tail with
+    collect_data, and FastPreSampler; then OracleSampler (hbm_fraction 1,
+    2 layers, fanouts 5,3: the numpy oracle samples in Python)."""
+    K1, K2, K3 = "sorted_segment_sum", "fused_gather_segment_sum", "gather_rows"
+    steps = train_steps(V)
+    cold = ("--hbm_fraction", str(COLD_FRACTION))
+    sage = {K1: 4 * steps, K2: steps, K3: steps}
+
+    def logged(*words):
+        def inspect(root):
+            text = "".join(open(p).read() for p in glob.glob(
+                os.path.join(root, "smoke", "*_logs.txt")))
+            for word in words:
+                check(word in text, f"{word} not in the run's log")
+                log(f"  ({word} logged)")
+        return inspect
+
+    def dumps(root):
+        files = glob.glob(os.path.join(root, "collected_data_*", "epoch0",
+                                       "*.npz"))
+        check(len(files) == 4, f"collect_data wrote {len(files)} dumps")
+        log(f"  (collect_data: {len(files)} dumps)")
+
+    runs = [
+        ("SAGE, cache policy", ("--cold_cache_slots", "-1"), sage,
+         logged("COLD_CACHE_PLAN")),
+        ("SAGE layerwise", ("--final_test_mode", "layerwise"), sage,
+         logged("LAYERWISE_NEEDS_FULL_HBM_FALLBACK")),
+        ("GCN", ("--model_name", "GCN"), {K1: 7 * steps, K3: steps}, None),
+        ("cache 4096 + fold", ("--cold_cache_slots", "4096",
+                               "--cold_fold_update", "true"), sage,
+         logged("COLD_CACHE")),
+        ("fp8 + collect_data", ("--cold_fp8", "true", "--collect_data",
+                                "true"), sage, dumps),
+        ("FastPreSampler", ("--train_sampler", "FastPreSampler"), sage, None),
+    ]
+    for label, extra, want, inspect in runs:
+        _, c = driven(f"driver cold {label}", lambda: phase_driver(
+            dev, V, C, cold + extra, floor=0.9, inspect=inspect))
+        _at_least(c, want, f"cold {label}, {steps} train steps")
+    small = ("--num_layers", "2", "--hidden_features", "128",
+             "--train_fanouts", "5,3", "--batchwise_test_fanouts", "20,20",
+             "--final_test_fanouts", "20,20")
+    _, c = driven("driver OracleSampler", lambda: phase_driver(
+        dev, V, C, ("--train_sampler", "OracleSampler") + small, floor=0.9))
+    check(c[K3] >= steps, f"OracleSampler bypassed K3: {c}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1170,6 +1452,7 @@ def main() -> int:
           and steps["fused_gather_segment_sum"] == 1
           and steps["gather_rows"] == 1,
           f"bench step launches {steps}: K1 4, K2 1, K3 1 expected")
+    full_res = res
     phase_layerwise_bench(trainer, dev, power)
     # per step: GAT K1 3 (message sums), GCN K1 6 (3 hops, forward and
     # mirrored backward); K3 1 (features), K2 0 (no gsrc). One trainer on
@@ -1183,7 +1466,6 @@ def main() -> int:
                         "fused_gather_segment_sum": 0, "gather_rows": 1},
               f"{m} bench step launches {steps}: K1 {k1}, K2 0, K3 1 "
               f"expected")
-    del trainer
     log(f"phase 5 bench: {time.perf_counter() - t:.1f} s")
     # phase 6
     t = time.perf_counter()
@@ -1192,6 +1474,13 @@ def main() -> int:
         phase_card_vs_cpu(dev, model_name=m, dtype=torch.float32)
     phase_layerwise_card_vs_cpu(dev)
     log(f"phase 6 card vs cpu: {time.perf_counter() - t:.1f} s")
+    # phase 7: the host cold tier (hbm_fraction 0.5)
+    t = time.perf_counter()
+    phase_cold_overlay(trainer, dev, power)
+    phase_cold_bench(trainer, dev, power, full_res)
+    del trainer
+    phase_cold_drivers(dev)
+    log(f"phase 7 cold tier: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

@@ -130,35 +130,32 @@ class RunConfig:
     # the validation curves match bf16 within seed-to-seed noise
     # (max gap 0.0039 vs noise 0.0135). WIRE_BYTES logs the receipt.
     wire_fp8: bool = True
-    # device cold-row cache (>HBM tier, gsrc models): number of feature-
-    # table slack rows kept as a persistent cache of cold rows. Only MISS
-    # rows then ride H2D per batch (cross-batch dedup — round-3 review
-    # item #1: consecutive batches re-fetch overlapping cold rows). 0
-    # disables (per-batch slack, no reuse). Requires the FastSampler
-    # train path (slot assignment runs at consumption time).
-    # -1 = AUTO: size from the measured H2D credit at trainer build time
-    # (train/cold_policy.py — enable only when the projected no-cache
-    # demand exceeds the link credit; 0 slots on healthy links, where
-    # the cache measurably loses). Round-4 review: "a knob is not a
-    # policy".
+    # device cold-row cache (host cold tier, gsrc models): number of
+    # feature-table slack rows kept as a persistent cache of cold rows.
+    # Only MISS rows then ship host→device per batch (consecutive batches
+    # re-fetch overlapping cold rows). 0 disables (per-batch slack, no
+    # reuse). Requires the FastSampler train path (slot assignment runs
+    # at consumption time).
+    # -1 = AUTO: size from the measured host→device credit at trainer
+    # build time (train/cold_policy.py: enable only when the projected
+    # no-cache demand exceeds the link credit; 0 slots where the link
+    # keeps up).
     cold_cache_slots: int = 0
     # AUTO policy inputs: the measured link credit (None = probe it live
     # at trainer build, train/cold_policy.measure_h2d_credit) and the
-    # assumed chip-bound rate used to project H2D demand (default: the
-    # 45M e/s baseline anchor — conservative for this chip)
+    # assumed device-bound rate used to project the demand (default: the
+    # JAX package's 45M edges/s anchor; no rate of this port)
     h2d_credit_mbs: Optional[float] = None
     assumed_chip_rate_eps: float = 45e6
-    # fold the cache's slack update into the train step at the top miss
-    # rung only (PERF_NOTES r4 finding 5): every batch ships the full
-    # cold_cap miss buffer (no rung ladder → one treedef, no separate
-    # updater dispatch per batch); costs ~8% more H2D bytes at 50% hit.
-    # For wire+dispatch-latency-bound deployments.
+    # fold the cache's slack write into the train step: every batch ships
+    # the full cold_cap miss buffer (no rung ladder), so more bytes ride
+    # the link per batch at a hit rate above zero, for one fewer
+    # per-batch update
     cold_fold_update: bool = False
-    # fp8 (e4m3) host cold tier: the >HBM tail is pre-encoded once on the
-    # host (uint8 payload + per-row f32 scale) and decoded on device —
-    # ~1.94x fewer H2D bytes for the dominant >HBM payload (measured 88%
-    # of the wire at hbm_fraction=0.5 bench shape) at the same ≤2^-3
-    # relative error as wire_fp8; also halves host RAM for the tail
+    # fp8 (e4m3) host cold tier: the tail is encoded once on the host
+    # (uint8 payload + per-row f32 scale) and decoded on the device:
+    # about half the cold rows' host→device bytes of bf16, at the same
+    # ≤2^-3 relative error as wire_fp8; also halves host RAM for the tail
     cold_fp8: bool = False
 
     # --- observability (§5.1 parity: NVTX/CUDA-events → jax.profiler) ---

@@ -8,7 +8,9 @@ Usage:
 synthetic spec "synth:V=100000,C=32,deg=12,F=64". The flags are the JAX
 driver's (every RunConfig field). The port runs single-card training and
 a batchwise or layerwise (``--final_test_mode layerwise``) final test on a
-CUDA device; ``main(argv, device="cpu")`` runs it on the CPU. Checkpoints
+CUDA device, with the feature table all on the card or, with
+``--hbm_fraction`` below 1, its cold tail in host RAM;
+``main(argv, device="cpu")`` runs it on the CPU. Checkpoints
 go to the job directory; ``RESUME=1`` restarts a trial from its latest
 one, and ``--do_test_run e0,e1,...`` scores saved epochs instead of
 training. What later slices bring raises NotImplementedError naming its
@@ -63,10 +65,6 @@ def _reject_unported(cfg) -> None:
     if cfg.execution_mode == "communication_simulation":
         raise NotImplementedError(
             "communication_simulation: ROADMAP.md Queue 1 item 15 (slice 4)")
-    if cfg.hbm_fraction < 1.0:
-        raise NotImplementedError(
-            "hbm_fraction < 1 (host cold tier): ROADMAP.md Queue 1 item 14 "
-            "(slice 3)")
 
 
 def run_computation(cfg, graph, job_dir: str, logger, device=None):

@@ -1,11 +1,14 @@
 from .batch import BatchSpec, EdgeBlock, PaddedBatch
+from .oracle import multilayer_sample_np, pad_sample
 from .sampler import (
-    FastSampler, FastSamplerConfig, SamplerStats, batch_seed, split_seeds,
+    FastPreSampler, FastSampler, FastSamplerConfig, SamplerStats, batch_seed,
+    split_seeds,
 )
 from .shufflers import Shuffler
 
 __all__ = [
     "BatchSpec", "PaddedBatch", "EdgeBlock",
-    "FastSampler", "FastSamplerConfig", "SamplerStats",
+    "FastPreSampler", "FastSampler", "FastSamplerConfig", "SamplerStats",
+    "multilayer_sample_np", "pad_sample",
     "batch_seed", "split_seeds", "Shuffler",
 ]

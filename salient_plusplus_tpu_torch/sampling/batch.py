@@ -251,6 +251,13 @@ class PaddedBatch(_TensorBatch):
     gsrc: Optional[torch.Tensor] = None
     n_id_lo: Optional[torch.Tensor] = None   # int16 bits of uint16 halves
     n_id_hi: Optional[torch.Tensor] = None   # uint8 or None
+    # host cold tier (hbm_fraction < 1): rows of the frontier vertices
+    # whose features stay in host RAM, gathered by the sampler thread and
+    # shipped with the batch; None when every row is on the device
+    cold_rows: Optional[torch.Tensor] = None   # [cap, F] bf16, or uint8 fp8
+    cold_pos: Optional[torch.Tensor] = None    # int32 [cap] (pads above rows)
+    cold_count: Optional[torch.Tensor] = None  # int32 []
+    cold_scale: Optional[torch.Tensor] = None  # f32 [cap] fp8 row scales
     spec: Optional[BatchSpec] = None
 
     def decoded_n_id(self) -> "PaddedBatch":
@@ -258,6 +265,9 @@ class PaddedBatch(_TensorBatch):
             return self
         return self.replace(n_id=_unpack24(self.n_id_lo, self.n_id_hi),
                             n_id_lo=None, n_id_hi=None)
+
+    def num_real_edges(self) -> int:
+        return int(sum(int(e.count) for e in self.edges))
 
     @property
     def num_layers(self) -> int:

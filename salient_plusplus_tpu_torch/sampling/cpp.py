@@ -7,6 +7,10 @@ sample in parallel). ``BatchBuffers`` are the padded host buffers one
 in-flight batch is written into. With ``pin=True`` (the CUDA path) every
 buffer is a pinned torch tensor and the C++ code writes into its numpy
 view, so the batch ships to the card by DMA without a staging copy.
+
+The host cold tier's rows (``hbm_fraction < 1``) are bf16 on the card;
+numpy has no bf16, so the host keeps their bits as uint16 and a batch
+ships them as a bf16 view of the same bytes.
 """
 
 from __future__ import annotations
@@ -84,7 +88,8 @@ def _ptr(a: np.ndarray, ty):
 _TORCH_DTYPE = {np.dtype(np.int32): torch.int32,
                 np.dtype(np.int64): torch.int64,
                 np.dtype(np.uint8): torch.uint8,
-                np.dtype(np.uint16): torch.int16}
+                np.dtype(np.uint16): torch.int16,
+                np.dtype(np.float32): torch.float32}
 
 
 def _host_zeros(n: int, dtype, pin: bool) -> np.ndarray:
@@ -103,6 +108,14 @@ def _t(a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
         return None
     if a.dtype == np.uint16:
         a = a.view(np.int16)
+    return torch.from_numpy(a)
+
+
+def _t_rows(a: np.ndarray) -> torch.Tensor:
+    """Zero-copy tensor view of cold feature rows: uint16 bf16 bits as
+    bfloat16, fp8 payload bytes as uint8."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
 
@@ -146,6 +159,13 @@ class BatchBuffers:
         self.mirror_dst = z(self.mirror_src.shape[0], np.int32)
         self.y = z(spec.seed_cap, np.int32)
         self.seed_count = z(1, np.int32)
+        # host cold tier buffers; attached only with a hot/cold split.
+        # cold_len: the rows a batch ships (the cap, or a cache miss rung)
+        self.cold_rows = None
+        self.cold_pos = None
+        self.cold_scale = None
+        self.cold_count = z(1, np.int32)
+        self.cold_len = 0
         self.gsrc = None
         self.ddeg = None
         self.ddeg_offsets = None
@@ -191,10 +211,27 @@ class BatchBuffers:
         # slot itself carries GLOBAL ids (no duplicate array on the wire)
         self.gsrc = np.zeros(0, np.int32)
 
-    def fill_gsrc(self):
+    def fill_gsrc(self, hot_cutoff: Optional[int] = None):
         """Rewrite the outermost hop's src in place to global ids
         (n_id[src]); its local ids are only ever gather indices into the
-        frontier, which layer 0 skips in gsrc mode."""
+        frontier, which layer 0 skips in gsrc mode.
+
+        With ``hot_cutoff`` (cold tier + gsrc), cold frontier ids are first
+        remapped IN n_id to ``hot_cutoff + cold_slot`` (fill_cold's
+        ascending slot order): the trainer writes this batch's cold rows
+        into a slack region of the device table right after the hot
+        prefix, so one table serves both the layer-0 message gather and
+        the level-(L-1) prefix gather."""
+        if hot_cutoff is not None and self.cold_pos is not None:
+            n = int(self.level_sizes[-1])
+            cnt = int(self.cold_count[0])
+            pos_all = np.flatnonzero(self.n_id[:n] >= hot_cutoff)
+            self.n_id[pos_all[:cnt]] = (
+                hot_cutoff + np.arange(cnt, dtype=np.int32))
+            # over-budget cold rows (no slot) alias slot 0: surfaced by
+            # dropped_cold and repaired by the cap growth after the epoch
+            if len(pos_all) > cnt:
+                self.n_id[pos_all[cnt:]] = hot_cutoff
         off = int(self.edge_offsets[self.spec.num_hops - 1])
         cap = int(self.spec.edge_caps[-1])
         get_lib().sptpu_take_i32_inplace(
@@ -273,8 +310,15 @@ class BatchBuffers:
     def attach_from_config(self, cfg, num_nodes: int,
                            pack_node_caps: tuple = None):
         """Attach every auxiliary buffer a ``FastSamplerConfig`` calls for
-        (gsrc / ddeg / wire-pack): the one place that decides which fields
-        a buffer set carries."""
+        (cold tier / gsrc / ddeg / wire-pack): the one place that decides
+        which fields a buffer set carries."""
+        if cfg.hot_cutoff is not None:
+            # cache mode ships a prefix of these at a miss rung, which is
+            # at least one 128-row rung
+            cap = (max(cfg.cold_cap, 128) if cfg.cold_cache is not None
+                   else cfg.cold_cap)
+            self.attach_cold(cap, cfg.x_cold.shape[1], cfg.x_cold.dtype,
+                             with_scale=cfg.x_cold_scale is not None)
         if cfg.emit_gsrc:
             # the gsrc rewrite replaces the outer hop's src values AFTER
             # the mirror is built; an outer-hop mirror would go stale
@@ -284,20 +328,132 @@ class BatchBuffers:
         if cfg.compress_dst:
             self.attach_ddeg()
         if cfg.pack_wire:
+            # gsrc + cold encodes cold ids as hot_cutoff + slot, so the
+            # shipped id space can exceed num_nodes by up to the cold cap
+            # (cache mode: the slot space plus its zero row)
+            idspace = num_nodes
+            if cfg.emit_gsrc and cfg.hot_cutoff is not None:
+                slots = (cfg.cold_cache.slots + 1
+                         if cfg.cold_cache is not None else cfg.cold_cap)
+                idspace = max(num_nodes, cfg.hot_cutoff + slots)
             self.attach_pack(
-                pack_src_maxval(cfg.spec, cfg.emit_gsrc, num_nodes),
-                node_caps=pack_node_caps, num_nodes=num_nodes)
+                pack_src_maxval(cfg.spec, cfg.emit_gsrc, idspace),
+                node_caps=pack_node_caps, num_nodes=idspace)
 
-    def finalize_from_config(self, cfg) -> None:
+    def finalize_from_config(self, cfg) -> int:
         """Post-:meth:`NativeSampler.sample_into` fills, in the
-        load-bearing order: ddeg (reads dst), then the gsrc in-place src
-        rewrite, then packing (which must see the rewritten srcs)."""
+        load-bearing order: cold classification first (reads the raw
+        ids), then ddeg (reads dst), then the gsrc in-place src rewrite,
+        then packing (which must see the rewritten srcs). Returns the
+        number of dropped (over-cold-budget) rows, which callers add to
+        their stats."""
+        if cfg.cold_cache is not None:
+            # device cold-row cache: slot assignment must run serially in
+            # batch CONSUMPTION order (eviction safety), so everything
+            # after ddeg is deferred to the consumer (finalize_cached)
+            if cfg.compress_dst:
+                self.fill_ddeg()
+            return 0
+        dropped = 0
+        if cfg.hot_cutoff is not None:
+            dropped = self.fill_cold(cfg.x_cold, cfg.hot_cutoff,
+                                     x_scale=cfg.x_cold_scale)
         if cfg.compress_dst:
             self.fill_ddeg()
         if cfg.emit_gsrc:
-            self.fill_gsrc()
+            self.fill_gsrc(cfg.hot_cutoff)
         if cfg.pack_wire:
             self.fill_pack()
+        return dropped
+
+    def finalize_cached(self, cfg) -> int:
+        """Consumer-side finalize for the device cold-row cache
+        (``cfg.cold_cache``, sampling/cold_cache.py). Runs serially in
+        batch-consumption order: assign cache slots for this batch's cold
+        frontier ids, gather ONLY the miss rows into a prefix of the
+        attached buffers (at a miss rung), remap cold ids in n_id to
+        ``hot_cutoff + slot``, then the gsrc src rewrite and wire-packing
+        (both read the remapped n_id). Returns the dropped-row count (no
+        slot, or over the per-batch miss budget); dropped ids point at
+        the permanent zero row ``hot_cutoff + slots``. Pad positions are
+        2^30, as in the JAX package; the trainer clamps them to that zero
+        row on the device."""
+        from .cold_cache import miss_rung
+
+        H = cfg.hot_cutoff
+        cache = cfg.cold_cache
+        n = int(self.level_sizes[-1])
+        pos_all = np.flatnonzero(self.n_id[:n] >= H)
+        ids = self.n_id[pos_all].astype(np.int64) - H
+        slot, miss = cache.assign(ids, max_new=cfg.cold_cap)
+        dropped = int((slot < 0).sum())
+        self.n_id[pos_all] = (
+            H + np.where(slot >= 0, slot, cache.slots)).astype(np.int32)
+        m = np.flatnonzero(miss)
+        cnt = len(m)
+        # fold mode: always the top rung (one miss-buffer shape)
+        rung = (cfg.cold_cap if cfg.cold_fold
+                else miss_rung(cnt, cfg.cold_cap))
+        if rung > self.cold_pos.shape[0]:
+            raise ValueError(f"miss rung {rung} exceeds the attached cold "
+                             f"buffers ({self.cold_pos.shape[0]} rows)")
+        if cnt:
+            gather_rows(cfg.x_cold, ids[m], out=self.cold_rows[:cnt])
+            self.cold_pos[:cnt] = H + slot[m]
+        self.cold_rows[cnt:rung] = 0
+        self.cold_pos[cnt:rung] = 2**30
+        if self.cold_scale is not None:
+            if cnt:
+                self.cold_scale[:cnt] = cfg.x_cold_scale[ids[m]]
+            self.cold_scale[cnt:rung] = 0
+        self.cold_count[0] = cnt
+        self.cold_len = rung
+        if cfg.emit_gsrc:
+            self.fill_gsrc(None)  # n_id already slot-remapped: plain take
+        if cfg.pack_wire:
+            self.fill_pack()
+        return dropped
+
+    def attach_cold(self, cold_cap: int, num_features: int, dtype,
+                    with_scale: bool = False):
+        # uint16 bf16 bits or uint8 fp8 bytes
+        self.cold_rows = _host_zeros(cold_cap * num_features, dtype,
+                                     self.pin).reshape(cold_cap, num_features)
+        self.cold_pos = _host_zeros(cold_cap, np.int32, self.pin)
+        self.cold_scale = (_host_zeros(cold_cap, np.float32, self.pin)
+                           if with_scale else None)
+        self.cold_count[0] = 0
+        self.cold_len = cold_cap
+
+    def _fill_cold_rows(self, x_cold, pos: np.ndarray,
+                        cold_idx: np.ndarray, x_scale=None) -> int:
+        cap = self.cold_pos.shape[0]
+        dropped = max(0, len(pos) - cap)
+        pos, cold_idx = pos[:cap], cold_idx[:cap]
+        cnt = len(pos)
+        self.cold_pos[:cnt] = pos
+        # pad slots point past every frontier cap: the device overlay
+        # drops them
+        self.cold_pos[cnt:] = self.n_id.shape[0]
+        idx64 = cold_idx.astype(np.int64)
+        gather_rows(x_cold, idx64, out=self.cold_rows[:cnt])
+        self.cold_rows[cnt:] = 0
+        if self.cold_scale is not None:
+            # fp8 wire: the per-row dequant scales ride along
+            self.cold_scale[:cnt] = x_scale[idx64]
+            self.cold_scale[cnt:] = 0
+        self.cold_count[0] = cnt
+        return dropped
+
+    def fill_cold(self, x_cold: np.ndarray, hot_cutoff: int,
+                  x_scale=None) -> int:
+        """Gather host-resident rows for frontier vertices >= hot_cutoff
+        (one global hot prefix). Returns the dropped count."""
+        n = int(self.level_sizes[-1])
+        ids = self.n_id[:n]
+        pos = np.flatnonzero(ids >= hot_cutoff).astype(np.int32)
+        return self._fill_cold_rows(x_cold, pos, ids[pos] - hot_cutoff,
+                                    x_scale)
 
     def fits(self, spec: BatchSpec) -> bool:
         """Does the sampled batch fit a (tighter) spec's caps?"""
@@ -358,6 +514,10 @@ class BatchBuffers:
         n_cap = (spec.total_node_cap if self.gsrc is None
                  else spec.node_caps[L - 1])
         pack_nid = self.n_id_lo is not None
+        # cold fields ship whole (no bucket cut): their pads lie above
+        # every bucket's caps
+        cold = self.cold_pos is not None
+        cl = self.cold_len
         return PaddedBatch(
             n_id=None if pack_nid else _t(self.n_id[:n_cap]),
             n_id_lo=_t(self.n_id_lo[:n_cap]) if pack_nid else None,
@@ -365,7 +525,13 @@ class BatchBuffers:
                      if pack_nid and self.n_id_hi is not None else None),
             level_sizes=_t(self.level_sizes), edges=edges,
             y=_t(self.y), seed_count=_t0(self.seed_count, 0),
-            overflow=_t(self.overflow), gsrc=_t(self.gsrc), spec=spec,
+            overflow=_t(self.overflow), gsrc=_t(self.gsrc),
+            cold_rows=_t_rows(self.cold_rows[:cl]) if cold else None,
+            cold_pos=_t(self.cold_pos[:cl]) if cold else None,
+            cold_count=_t0(self.cold_count, 0) if cold else None,
+            cold_scale=(_t(self.cold_scale[:cl])
+                        if cold and self.cold_scale is not None else None),
+            spec=spec,
         )
 
 

@@ -13,10 +13,13 @@ Invariants carried over:
 - *per-batch deterministic RNG*: seed derived from (base_seed, epoch,
   batch index), the same function as the JAX package's, so both packages
   sample the same batches.
+
+``FastPreSampler`` samples a whole epoch up front instead.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import queue
 import threading
 import time
@@ -56,6 +59,8 @@ class SamplerStats:
     batches: int = 0
     dropped_nodes: int = 0
     dropped_edges: int = 0
+    dropped_cold: int = 0    # cold-tier rows over the cold budget
+    cold_rows: int = 0       # host-tier rows shipped
     # static-shape padding accounting: waste = 1 − real/padded, where
     # padded sums each batch's OWN bucket caps
     real_nodes: int = 0
@@ -82,6 +87,23 @@ class FastSamplerConfig:
     base_seed: int = 0
     num_workers: int = 3
     max_batches_in_flight: int = 8
+    # host cold tier (hbm_fraction < 1): vertices with id >= hot_cutoff
+    # have their rows in x_cold (host RAM, row i = global row
+    # hot_cutoff + i; uint16 bf16 bits, or uint8 fp8 bytes with
+    # x_cold_scale) and are gathered by the sampler threads, at most
+    # cold_cap a batch
+    hot_cutoff: Optional[int] = None
+    x_cold: Optional[np.ndarray] = None
+    cold_cap: int = 0
+    x_cold_scale: Optional[np.ndarray] = None
+    # device cold-row cache (sampling/cold_cache.py): a shared
+    # HostColdCache managing the feature table's slack region; cold
+    # classification then runs at CONSUMPTION time (slot-eviction safety)
+    # and only miss rows ship. cold_cap is then the per-batch miss budget
+    # and the top miss rung
+    cold_cache: Optional[object] = None
+    # cold_fold_update: miss buffers always ship at the top rung
+    cold_fold: bool = False
     # emit global src ids for the outermost hop (PaddedBatch.gsrc)
     emit_gsrc: bool = False
     # ship per-target uint8 degrees instead of int32 dst arrays
@@ -119,6 +141,7 @@ class FastSamplerIter:
         self._free: queue.Queue = queue.Queue()
         self._work: queue.Queue = queue.Queue()
         self._shutdown = threading.Event()
+        self._stats_lock = threading.Lock()
         pool = min(cfg.max_batches_in_flight + cfg.num_workers,
                    max(2, self.num_batches + 1))
         for _ in range(max(pool, 1)):
@@ -154,7 +177,7 @@ class FastSamplerIter:
                     rng_seed=batch_seed(cfg.base_seed, self.epoch, bno),
                     y_global=self.sampler.y,
                 )
-                bufs.finalize_from_config(cfg)
+                dropped = bufs.finalize_from_config(cfg)
                 # 2-bucket padding recovery: a pure function of the
                 # batch's measured sizes, so bucket choice is deterministic
                 bufs.bucket = (cfg.tight_spec if cfg.tight_spec is not None
@@ -163,7 +186,9 @@ class FastSamplerIter:
                 self.recycle(bufs)
                 self._out.put((bno, e))
                 return
-            self.stats.sample_time += time.perf_counter() - t0
+            with self._stats_lock:  # the workers share the stats
+                self.stats.dropped_cold += dropped
+                self.stats.sample_time += time.perf_counter() - t0
             self._out.put((bno, bufs))
 
     def __len__(self):
@@ -202,12 +227,21 @@ class FastSamplerIter:
         if isinstance(bufs, BaseException):
             self.close()
             raise bufs
+        cfg = self.sampler.cfg
+        if cfg.cold_cache is not None:
+            # serial, in consumption order: the cache's eviction-safety
+            # contract (sampling/cold_cache.py)
+            dropped = bufs.finalize_cached(cfg)
+            with self._stats_lock:
+                self.stats.dropped_cold += dropped
         self._next_expected += 1
         self.stats.batches += 1
         self.stats.dropped_nodes += int(bufs.overflow[0])
         self.stats.dropped_edges += int(bufs.overflow[1])
         self.stats.real_nodes += int(bufs.level_sizes[-1])
         self.stats.real_edges += int(bufs.edge_counts.sum())
+        if bufs.cold_pos is not None:
+            self.stats.cold_rows += int(bufs.cold_count[0])
         eff = bufs.bucket or bufs.spec
         self.stats.padded_nodes += eff.total_node_cap
         self.stats.padded_edges += sum(eff.edge_caps)
@@ -232,6 +266,40 @@ class FastSamplerIter:
         for t in self._threads:
             t.join(timeout=5)
         self._threads = []
+
+
+class FastPreSampler:
+    """Samples a whole epoch up front into unpinned buffer sets, one a
+    batch, then iterates them (the JAX package's ``FastPreSampler``):
+    host memory for no sampling latency inside the epoch."""
+
+    def __init__(self, sampler: "FastSampler"):
+        self.sampler = sampler
+        self.dropped_cold = 0  # over-cold-budget rows across the epoch
+
+    def presample(self, epoch: int) -> List[BatchBuffers]:
+        cfg = self.sampler.cfg
+        batches = split_seeds(self.sampler.get_epoch_idx(epoch),
+                              cfg.batch_size)
+
+        def work(bno):
+            bufs = BatchBuffers(cfg.spec)
+            bufs.attach_from_config(cfg, self.sampler.num_nodes)
+            self.sampler.native.sample_into(
+                bufs, batches[bno],
+                rng_seed=batch_seed(cfg.base_seed, epoch, bno),
+                y_global=self.sampler.y)
+            return bufs, bufs.finalize_from_config(cfg)
+
+        out = []
+        with cf.ThreadPoolExecutor(max(1, cfg.num_workers)) as ex:
+            for bufs, dropped in ex.map(work, range(len(batches))):
+                out.append(bufs)
+                self.dropped_cold += dropped
+        return out
+
+    def __iter__(self):
+        return iter(self.presample(self.sampler.epoch))
 
 
 class FastSampler:

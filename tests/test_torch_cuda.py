@@ -458,3 +458,92 @@ def test_model_step_on_card_matches_cpu(cuda_device, name, monkeypatch):
     for k in gc:
         rel = float((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-12))
         assert rel < 1e-3, (k, rel)
+
+
+def _cold_trainer(device, **kw):
+    from salient_plusplus_tpu_torch.config import RunConfig
+    from salient_plusplus_tpu_torch.data import synthetic
+    from salient_plusplus_tpu_torch.train.loop import Trainer
+
+    g = synthetic.planted_partition("cuda-cold", num_nodes=6000,
+                                    num_classes=6, avg_degree=10,
+                                    num_features=24, seed=5)
+    cfg = RunConfig(train_batch_size=256, train_fanouts=[6, 4, 3],
+                    hidden_features=64, num_layers=3, num_workers=2,
+                    calibration_batches=2, dropout=0.0,
+                    compute_dtype="float32", seed=1, **kw)
+    return Trainer(cfg, g, device=device)
+
+
+def _first_batch(trainer):
+    from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
+
+    trainer.train_sampler.set_epoch(trainer.shuffler.get_idx(0), 0)
+    it = iter(trainer.train_sampler)
+    batch = next(DeviceFeeder(it, trainer.device, depth=1))
+    it.close()
+    return batch
+
+
+def test_cold_overlay_on_card_matches_plain(cuda_device):
+    """The cold overlay of ``gather_features`` (K1 as a sorted placement
+    of the batch's cold rows, one K3 for the hot prefix) on the card equals
+    the CPU's plain version and the all-in-memory gather bit for bit."""
+    from salient_plusplus_tpu_torch.train.step import (decode_batch,
+                                                       gather_features)
+
+    t = _cold_trainer(cuda_device, hbm_fraction=0.5, gsrc_mode="off")
+    b = decode_batch(_first_batch(t))
+    assert int(b.cold_count) > 0
+    k1, k3 = S.sorted_segment_sum_mxu.launches, G.pallas_gather_rows.launches
+    x = gather_features(t.features, b)
+    torch.cuda.synchronize()
+    assert (S.sorted_segment_sum_mxu.launches - k1,
+            G.pallas_gather_rows.launches - k3) == (1, 1)
+    x_cpu = gather_features(t.features.cpu(), b.to("cpu"))
+    assert torch.equal(x.cpu().view(torch.int16), x_cpu.view(torch.int16))
+    full = _cold_trainer("cpu", hbm_fraction=1.0).features
+    assert torch.equal(x_cpu.view(torch.int16),
+                       full[b.n_id.long().cpu()].view(torch.int16))
+
+
+def test_fp8_decode_on_card_matches_cpu(cuda_device):
+    from salient_plusplus_tpu_torch.parallel.exchange import (
+        fp8_decode_rows, fp8_encode_rows_np)
+
+    x = np.random.default_rng(2).standard_normal((4096, 128)).astype(
+        np.float32) * 7
+    payload, scale = fp8_encode_rows_np(x)
+    p, s = torch.from_numpy(payload), torch.from_numpy(scale)
+    for dt in (torch.bfloat16, torch.float32):
+        got = fp8_decode_rows(p.to(cuda_device), s.to(cuda_device), dt)
+        assert torch.equal(got.cpu(), fp8_decode_rows(p, s, dt))
+
+
+@pytest.mark.parametrize("mode", ["gsrc", "overlay", "cache", "fp8"])
+def test_cold_step_on_card_matches_cpu(cuda_device, mode):
+    """One train step at hbm_fraction 0.5 from the same weights and batch
+    on the card (pinned cold buffers) and on the CPU (float32, TF32 off,
+    dropout 0): cold rows written into the slack region (gsrc), overlaid
+    by K1 (gsrc off), placed in cache slots, or decoded from fp8 into the
+    slack. Loss within 1e-5, each gradient within 1e-3 relative
+    (Frobenius) error, as the other card-vs-CPU steps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = {"gsrc": {}, "overlay": {"gsrc_mode": "off"},
+          "cache": {"cold_cache_slots": 1024},
+          "fp8": {"cold_fp8": True}}[mode]
+    out = {}
+    sd = None
+    for dev in ("cpu", cuda_device):
+        t = _cold_trainer(dev, hbm_fraction=0.5, **kw)
+        if sd is None:
+            sd = {k: v.clone() for k, v in t.state.model.state_dict().items()}
+        t.state.model.load_state_dict(sd)
+        loss = float(t.run_step(_first_batch(t)))
+        out[str(dev)] = (loss, {k: p.grad.detach().cpu() for k, p in
+                                t.state.model.named_parameters()})
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda_device)]
+    assert abs(lc - lg) < 1e-5, (lc, lg)
+    for k in gc:
+        rel = float((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-12))
+        assert rel < 1e-3, (k, rel)

@@ -147,10 +147,9 @@ def test_driver_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--distribute_data", "true"], ["--hbm_fraction", "0.5"],
-    ["--train_sampler", "FastPreSampler"],
+    ["--distribute_data", "true"],
     ["--execution_mode", "communication_simulation"],
-    ["--collect_data", "true"], ["--train_sampler", "OracleSampler"],
+    ["--distribute_data", "true", "--hbm_fraction", "0.5"],
 ])
 def test_driver_rejects_what_later_slices_bring(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -190,7 +189,9 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     rel = {os.path.relpath(f, REPO) for f in files}
     for new in ("ops/gat_agg.py", "train/checkpoint.py", "models/layers.py",
-                "models/inference.py"):
+                "models/inference.py", "parallel/exchange.py",
+                "sampling/cold_cache.py", "sampling/oracle.py",
+                "train/cold_policy.py", "utils/data_collector.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
