@@ -58,7 +58,19 @@ them.
    ``--hbm_fraction 0.5`` (SAGE under the cache policy and with a
    layerwise final test, GCN, the cache with the folded update, fp8 with
    collect_data, FastPreSampler) and with ``--train_sampler
-   OracleSampler``.
+   OracleSampler``;
+8. partitioning, VIP caching, the comm-volume simulation and the feature
+   exchange: ``vip_analytical_device`` over the bench graph (4 partitions)
+   against the numpy recurrence, timed, with its peak memory;
+   ``partition.cli`` on the 100k-node planted graph, then the driver
+   trains SAGE one epoch from its ``<name>-reordered-k4`` output (K1, K2,
+   K3 launched); ``--execution_mode communication_simulation`` through the
+   driver (``vip`` and ``simulation``) with the accounting identity on
+   every row, and ``comm_budget.measure_budget`` against phase 5's SAGE
+   step; ``assemble_features`` in a world-1 NCCL group over the bench
+   table (plain, a VIP cache, a hot prefix, the fp8 wire) equal to
+   ``table[n_id]`` bit for bit, K3 launched 2-3 times a call, timed; a
+   2-rank NCCL run of the same checks where the host has 2 cards.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -1385,6 +1397,264 @@ def phase_cold_drivers(dev, V=100_000, C=32):
     check(c[K3] >= steps, f"OracleSampler bypassed K3: {c}")
 
 
+# ---------------------------------------------------------------- phase 8
+SIM_SPEC = "synth:V=100000,C=32,deg=12,F=64"
+
+
+def phase_vip_device(g, dev, power, parts=4):
+    """``vip_analytical_device`` on ``dev`` over the bench graph, 4
+    partitions of ``contiguous_partition`` (their quality does not matter
+    to the timing), at the bench batch and fanouts; every partition's
+    weights held to the numpy float64 recurrence within the JAX suite's
+    tolerance (rtol 5e-3, atol 5e-5)."""
+    from salient_plusplus_tpu_torch.caching import vip
+    from salient_plusplus_tpu_torch.partition import contiguous_partition
+
+    fanouts, mb = BENCH_CFG["train_fanouts"], BENCH_CFG["train_batch_size"]
+    labels = contiguous_partition(g.num_nodes, parts)
+    tipp = vip.partitionwise_train_idx(labels, g.split_idx["train"])
+    vip.vip_analytical_device(g.rowptr, g.col, tipp[:1], mb, fanouts,
+                              device=dev)  # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = vip.vip_analytical_device(g.rowptr, g.col, tipp, mb, fanouts,
+                                    device=dev)  # ends in a copy to host
+    dt = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    t0 = time.perf_counter()
+    ref = vip.vip_analytical(g.rowptr, g.col, tipp, mb, fanouts)
+    dt_np = time.perf_counter() - t0
+    err = 0.0
+    for p, (a, b) in enumerate(zip(got, ref)):
+        bad = np.abs(a - b) > 5e-5 + 5e-3 * np.abs(b)
+        check(not bad.any(), f"VIP partition {p}: {int(bad.sum())} weights "
+              f"outside rtol 5e-3 / atol 5e-5 of numpy")
+        err = max(err, float(np.abs(a - b).max()))
+    E, L = g.num_edges, len(fanouts)
+    log(f"  VIP on {dev.type}: V={g.num_nodes} E={E} {parts} partitions x "
+        f"{L} hops: {dt * 1e3 / parts:.1f} ms/partition (host clock, "
+        f"upload and copy-back included), {E * L * parts / dt:.4g} edges/s, "
+        f"peak memory {peak}; numpy float64 {dt_np * 1e3 / parts:.1f} "
+        f"ms/partition; max |card - numpy| {err:.3g}  [{power}]")
+
+
+def phase_partitioned_driver(dev, C=32, spec=SIM_SPEC, extra=()):
+    """The offline pipeline, then the driver on its output: partition.cli
+    writes ``<name>-reordered-k4`` of the 100k-node planted graph into a
+    temp root, and the driver trains SAGE one epoch from it on ``dev``,
+    batchwise final test; final_valid above chance (phase 4's floor) and
+    K1, K2, K3 each launched."""
+    from salient_plusplus_tpu_torch import driver
+    from salient_plusplus_tpu_torch.partition import cli
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path = cli.main([spec, "--parts", "4", "--out_root", root])
+        log(f"  partition.cli: {time.perf_counter() - t0:.1f} s, wrote "
+            f"{sorted(os.listdir(path))}")
+        out, c = driven("driver on the partitioned dataset", lambda:
+                        driver.main([os.path.basename(path), "smoke",
+                                     "--dataset_root", root, "--epochs", "1",
+                                     "--output_root", root, *extra],
+                                    device=dev))
+    r = out[0]
+    log(f"  driver on {os.path.basename(path)}: losses={r['losses']} "
+        f"final_valid={r['final_valid']:.4f} final_test="
+        f"{r['final_test']:.4f} epoch_s={r['epoch_times']}")
+    check(all(np.isfinite(r["losses"])), "losses are not finite")
+    check(r["final_valid"] > 1.0 / C, f"final_valid {r['final_valid']} is "
+          f"not above chance")
+    check(min(c.values()) > 0, f"the partitioned run bypassed a kernel: {c}")
+
+
+def phase_simulation(step_s, spec=SIM_SPEC):
+    """--execution_mode communication_simulation through the driver CLI on
+    the 100k-node graph (SIM_PARTS 4, host only), with the default
+    --cache_strategy vip and with simulation; the accounting identity on
+    every row. Then comm_budget.measure_budget on that graph at world 4
+    against the measured SAGE step ``step_s`` (phase 5)."""
+    from salient_plusplus_tpu_torch import driver
+    from salient_plusplus_tpu_torch.caching import comm_budget
+    from salient_plusplus_tpu_torch.config import RunConfig
+    from salient_plusplus_tpu_torch.partition import multiconstraint_partition
+
+    with tempfile.TemporaryDirectory() as root:
+        for strategy in ("vip", "simulation"):
+            t0 = time.perf_counter()
+            res = driver.main([spec, "sim", "--execution_mode",
+                               "communication_simulation", "--cache_strategy",
+                               strategy, "--output_root", root])
+            for scheme, by_alpha in res.items():
+                for alpha, d in by_alpha.items():
+                    check(d["total"] == d["internal"] + d["cross"]
+                          + d["cache_hits"] and d["total"] > 0,
+                          f"{scheme} {alpha}: identity broken: {d}")
+            log(f"  simulation --cache_strategy {strategy}: schemes "
+                f"{list(res)}, identity holds on every row, "
+                f"{time.perf_counter() - t0:.1f} s")
+    g = driver.load_dataset(RunConfig(), spec)
+    labels = multiconstraint_partition(g.rowptr, g.col, 4, seed=0)
+    t0 = time.perf_counter()
+    rows = comm_budget.measure_budget(g, labels, step_time_s=step_s)
+    log(f"  comm budget, world 4, step {step_s * 1e3:.3f} ms (phase 5), "
+        f"published link peaks {comm_budget.LINK_RATES} B/s, "
+        f"{time.perf_counter() - t0:.1f} s:")
+    for r in rows:
+        log(f"    alpha={r.alpha:.2f} r_cap={r.r_cap} wire_bytes/step="
+            f"{r.wire_bytes_per_step} comm_share_nvlink="
+            f"{r.comm_share_nvlink} comm_share_nic={r.comm_share_nic} "
+            f"sim_cross/batch={r.sim_cross_per_batch}")
+    check(rows[-1].r_cap <= rows[0].r_cap, "caching grew r_cap")
+
+
+def exchange_cases(table, n_id, count, offs, rank, dev, hot, r_cap,
+                   power=None):
+    """``assemble_features`` in the default group, rank ``rank`` owning
+    rows [offs[rank], offs[rank+1]) of ``table`` (the full table, which
+    every rank holds here only to build the expected rows): plain, with a
+    DeviceCache of every 7th id of the other partitions, with the fp8
+    wire, and with a hot prefix of ``hot`` rows. Each result must equal
+    ``table[n_id]`` bit for bit (zero past ``count`` and past the hot
+    prefix; remote rows of the fp8 wire equal to the CPU's fp8 codec round
+    trip), and K3 must launch 2 times a call (3 with the cache). With
+    ``power``, the calls are timed."""
+    from salient_plusplus_tpu_torch.ops.pallas_gather import (
+        pallas_gather_rows)
+    from salient_plusplus_tpu_torch.parallel.exchange import (
+        DeviceCache, assemble_features, fp8_wire_decode, fp8_wire_encode)
+
+    world = len(offs) - 1
+    lo, hi = int(offs[rank]), int(offs[rank + 1])
+    offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
+    ids = n_id.long()
+    real = torch.arange(ids.shape[0], device=dev) < count
+    want = torch.where(real[:, None], table[ids], 0)
+    local = (ids >= lo) & (ids < hi)
+    codec = fp8_wire_decode(fp8_wire_encode(want.cpu()), table.dtype)
+    owner = torch.searchsorted(offs_t[1:], ids, right=True).clamp(
+        max=world - 1)
+    cached_ids = torch.cat([torch.arange(int(offs[p]), int(offs[p + 1]), 7,
+                                         device=dev)
+                            for p in range(world) if p != rank or world == 1])
+    cache = DeviceCache(cached_ids, table[cached_ids].contiguous())
+    cases = [
+        ("plain", table[lo:hi], {}, want, 2),
+        ("cache", table[lo:hi], {"cache": cache}, want, 3),
+        ("fp8", table[lo:hi], {"wire_fp8": True},
+         torch.where(local[:, None], want, codec.to(dev)), 2),
+        ("hot", table[lo:lo + hot].contiguous(), {"hot_size": hot},
+         torch.where(((ids - offs_t[owner]) < hot)[:, None], want, 0), 2),
+    ]
+    for label, shard, kw, expect, k3 in cases:
+        before = pallas_gather_rows.launches
+        x, st = assemble_features(shard, n_id, count, offs_t, r_cap, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        k3_calls = pallas_gather_rows.launches - before
+        check(dev.type != "cuda" or k3_calls == k3,
+              f"exchange {label}: K3 launched {k3_calls} times, {k3} "
+              f"expected")
+        check(torch.equal(x, expect),
+              f"exchange {label} (rank {rank}/{world}): not equal to "
+              f"table[n_id] bit for bit")
+        stats = {k: float(v) for k, v in st._asdict().items()}
+        check(stats["num_overflow"] == 0, f"exchange {label}: overflow")
+        # ~30 small ops and 2 collectives a call: let the device sleep
+        # through 3 ms of enqueueing a call
+        ms = (cuda_ms(lambda: assemble_features(shard, n_id, count, offs_t,
+                                                r_cap, **kw),
+                      host_ms=3.0)
+              if power is not None else None)
+        log(f"  exchange {label} rank {rank}/{world} ({str(table.dtype)[6:]}"
+            f", N_cap {ids.shape[0]}, count {int(count)}, r_cap {r_cap}): "
+            f"equal to table[n_id]; K3 {k3_calls} a call; stats {stats}"
+            + (f"; {ms:.4f} ms a call  [{power}]" if ms is not None else ""))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _exchange_rank(rank, port, world, V, F, n):
+    """One rank of the multi-GPU leg: the same random table on every rank
+    (a seeded generator on its own card), 2 partitions, its own ids."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        table = torch.randn(V, F, generator=gen, device=dev).to(
+            torch.bfloat16)
+        rng = np.random.default_rng(rank)
+        n_id = torch.from_numpy(rng.integers(0, V, n + n // 8).astype(
+            np.int32)).to(dev)
+        offs = [V * p // world for p in range(world + 1)]
+        exchange_cases(table, n_id, torch.tensor(n, device=dev), offs, rank,
+                       dev, hot=V // (2 * world), r_cap=n)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_exchange(g, spec, dev, power):
+    """The exchange in a world-1 group (NCCL on the card, gloo on the
+    CPU) over the bench graph's table in bf16 and one bench-shape batch's
+    frontier: every id is local, so each case must return table[n_id]
+    exactly; the fp8 wire codec on the card against the CPU's; then, where
+    the host has 2 cards, a 2-rank NCCL run of the same checks over 2
+    partitions."""
+    import torch.distributed as dist
+
+    from salient_plusplus_tpu_torch.parallel.exchange import (
+        _fp8_wire_exchange, fp8_wire_decode, fp8_wire_encode)
+    from salient_plusplus_tpu_torch.sampling.cpp import NativeSampler
+
+    native = NativeSampler(g.rowptr, g.col)
+    seeds = np.sort(np.random.default_rng(8).choice(
+        g.split_idx["train"], spec.seed_cap, replace=False))
+    b = native.sample(spec, seeds, rng_seed=8)
+    n_id = b.n_id.to(dev)
+    count = b.level_sizes[-1].to(dev)
+    table = torch.from_numpy(np.asarray(g.x)).to(dev).to(torch.bfloat16)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        exchange_cases(table, n_id, count, [0, g.num_nodes], 0, dev,
+                       hot=g.num_nodes // 2, r_cap=128, power=power)
+        rows = table[n_id.long()[:int(count)]].view(1, -1, table.shape[1])
+        via = _fp8_wire_exchange(rows)
+        on_cpu = fp8_wire_decode(fp8_wire_encode(rows.cpu()), rows.dtype)
+        check(torch.equal(via.cpu(), on_cpu), "fp8 wire through "
+              f"{backend} differs from the CPU codec round trip")
+        log(f"  fp8 wire through {backend}, {rows.shape[1]} rows: equal to "
+            f"the CPU codec round trip bit for bit")
+    finally:
+        dist.destroy_process_group()
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_dev < 2:
+        log(f"  multi-GPU exchange leg not run: device_count={n_dev}")
+        return
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(_exchange_rank, args=(_free_port(), 2, 1_000_000, 100,
+                                         200_000),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1):
+        check(time.monotonic() < deadline, "2-rank exchange: no end in 300 s")
+    log("  multi-GPU exchange leg: 2 ranks, NCCL, every case equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1478,9 +1748,19 @@ def main() -> int:
     t = time.perf_counter()
     phase_cold_overlay(trainer, dev, power)
     phase_cold_bench(trainer, dev, power, full_res)
+    bench_graph, bench_spec = trainer.graph, trainer.train_spec
     del trainer
     phase_cold_drivers(dev)
     log(f"phase 7 cold tier: {time.perf_counter() - t:.1f} s")
+    # phase 8: partitioning, VIP, the comm-volume simulation, the exchange
+    t = time.perf_counter()
+    phase_vip_device(bench_graph, dev, power)
+    phase_partitioned_driver(dev)
+    phase_simulation(full_res["step_ms"] * 1e-3)
+    phase_exchange(bench_graph, bench_spec, dev, power)
+    del bench_graph
+    log(f"phase 8 partitioning, VIP, simulation, exchange: "
+        f"{time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

@@ -4,17 +4,22 @@ Usage:
     python -m salient_plusplus_tpu_torch.driver <dataset> <job_name> [--flags]
         [--do_test_run epoch0,epoch1,...]
 
-<dataset> is a GraphData directory name under --dataset_root, or a
-synthetic spec "synth:V=100000,C=32,deg=12,F=64". The flags are the JAX
-driver's (every RunConfig field). The port runs single-card training and
-a batchwise or layerwise (``--final_test_mode layerwise``) final test on a
-CUDA device, with the feature table all on the card or, with
-``--hbm_fraction`` below 1, its cold tail in host RAM;
-``main(argv, device="cpu")`` runs it on the CPU. Checkpoints
-go to the job directory; ``RESUME=1`` restarts a trial from its latest
-one, and ``--do_test_run e0,e1,...`` scores saved epochs instead of
-training. What later slices bring raises NotImplementedError naming its
-ROADMAP.md item.
+<dataset> is a GraphData directory name under --dataset_root, a
+partitioned ``<name>-reordered-k{K}`` directory written by
+``partition/cli.py``, or a synthetic spec "synth:V=100000,C=32,deg=12,F=64".
+The flags are the JAX driver's (every RunConfig field). The port runs
+single-card training and a batchwise or layerwise (``--final_test_mode
+layerwise``) final test on a CUDA device, with the feature table all on
+the card or, with ``--hbm_fraction`` below 1, its cold tail in host RAM;
+``main(argv, device="cpu")`` runs it on the CPU. A partitioned dataset is
+trained on one card from all its shards, as the JAX driver does off its
+distributed path. Checkpoints go to the job directory; ``RESUME=1``
+restarts a trial from its latest one, and ``--do_test_run e0,e1,...``
+scores saved epochs instead of training. ``--execution_mode
+communication_simulation`` partitions the graph into ``SIM_PARTS``
+(default 4) parts and sweeps the cache schemes' communication volume on
+the host, with no model and no device. ``--distribute_data`` raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -24,6 +29,37 @@ import os
 import sys
 
 import numpy as np
+
+
+class PartitionedDatasetRef:
+    """An on-disk partition-reordered dataset (``<name>-reordered-k{K}``,
+    written by ``partition/cli.py``). The single-card paths call
+    :meth:`load_full` (``load_full_dataset``); the data-parallel trainer
+    will load one shard a rank."""
+
+    def __init__(self, root: str, name: str, num_parts: int):
+        self.root, self.name, self.num_parts = root, name, num_parts
+
+    def load_full(self):
+        """Every shard concatenated into one (reordered) GraphData."""
+        from .data.dataset import GraphData, PartitionedGraphData
+
+        pgs = [PartitionedGraphData.load_partitioned(self.root, self.name, r)
+               for r in range(self.num_parts)]
+        pg = pgs[0]
+        return GraphData(
+            name=pg.name, rowptr=pg.rowptr, col=pg.col,
+            x=np.concatenate([p.x for p in pgs], axis=0), y=pg.y,
+            split_idx=pg.split_idx, num_classes=pg.num_classes)
+
+
+def load_full_dataset(cfg, name: str):
+    """``load_dataset``, with a partitioned dataset loaded whole: what
+    every single-card path trains, scores or simulates on."""
+    graph = load_dataset(cfg, name)
+    if isinstance(graph, PartitionedDatasetRef):
+        graph = graph.load_full()
+    return graph
 
 
 def load_dataset(cfg, name: str):
@@ -48,9 +84,8 @@ def load_dataset(cfg, name: str):
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         if meta.get("num_parts", 1) > 1:
-            raise NotImplementedError(
-                f"{name} is a partitioned dataset: ROADMAP.md Queue 1 "
-                "items 16-17 (slice 4)")
+            return PartitionedDatasetRef(cfg.dataset_root, name,
+                                         meta["num_parts"])
         return GraphData.load(cfg.dataset_root, name)
     raise NotImplementedError(
         f"dataset {name!r} is neither a synth: spec nor a GraphData "
@@ -61,10 +96,39 @@ def load_dataset(cfg, name: str):
 def _reject_unported(cfg) -> None:
     if cfg.distribute_data:
         raise NotImplementedError(
-            "--distribute_data: ROADMAP.md Queue 1 items 16-17 (slice 4)")
-    if cfg.execution_mode == "communication_simulation":
-        raise NotImplementedError(
-            "communication_simulation: ROADMAP.md Queue 1 item 15 (slice 4)")
+            "--distribute_data: ROADMAP.md Queue 1 item 17 (the "
+            "data-parallel trainer)")
+
+
+# --cache_strategy → the cache schemes the simulation sweeps. "vip" keeps
+# the JAX driver's pair; "simulation" maps as the JAX package's
+# DistributedTrainer.create_cache maps it (the JAX driver passes it on
+# unmapped, and caching/vip.py refuses it: ROADMAP.md Queue 3)
+SIM_SCHEMES = {"vip": ("vip-analytical", "degree"),
+               "simulation": ("vip-simulation",)}
+
+
+def run_communication_simulation(cfg, graph, logger):
+    """--execution_mode communication_simulation: partition into SIM_PARTS
+    (default 4, at least 2) parts, then the scheme × replication-factor
+    sweep of the communication volume, with no model (host only)."""
+    from .caching.simulate import run_replication_sweep, tabulate_comm_results
+    from .partition import multiconstraint_partition
+
+    k = max(2, int(os.environ.get("SIM_PARTS", "4")))
+    labels = multiconstraint_partition(graph.rowptr, graph.col, k,
+                                       seed=cfg.seed)
+    results = run_replication_sweep(
+        graph.rowptr, graph.col, labels, graph.split_idx["train"],
+        cfg.train_fanouts, cfg.train_batch_size,
+        schemes=SIM_SCHEMES.get(cfg.cache_strategy, (cfg.cache_strategy,)),
+        replication_factors=tuple(sorted(
+            {0.0, 0.01, 0.05, 0.1, 0.2, cfg.cache_size})),
+        num_epochs=cfg.cache_creation_epochs, seed=cfg.seed)
+    table = tabulate_comm_results(results)
+    logger.log("communication_simulation", table)
+    print(table)
+    return results
 
 
 def run_computation(cfg, graph, job_dir: str, logger, device=None):
@@ -110,7 +174,8 @@ def do_test_run(cfg, graph, job_dir: str, checkpoint_epochs, logger,
 
 
 def main(argv=None, device=None):
-    """Run the CLI; ``device=None`` means CUDA."""
+    """Run the CLI; ``device=None`` means CUDA. The simulation mode runs
+    on the host and touches no device."""
     from .config import RunConfig
     from .utils.device import resolve_device
     from .utils.logging import RunLogger
@@ -137,7 +202,10 @@ def main(argv=None, device=None):
     cfg = RunConfig.from_args(rest)
     cfg = cfg.replace(dataset_name=dataset_name, job_name=job_name)
     _reject_unported(cfg)
-    device = resolve_device(device)
+    simulate = (test_run_epochs is None
+                and cfg.execution_mode == "communication_simulation")
+    if not simulate:
+        device = resolve_device(device)
 
     job_dir = os.path.join(cfg.output_root, job_name)
     os.makedirs(job_dir, exist_ok=True)
@@ -146,13 +214,15 @@ def main(argv=None, device=None):
     logger = RunLogger(job_dir, host=os.environ.get("HOSTNAME", "host0"),
                        verbose=cfg.verbose)
 
-    graph = load_dataset(cfg, dataset_name)
+    graph = load_full_dataset(cfg, dataset_name)
     if cfg.make_deterministic:
         np.random.seed(cfg.seed)
     try:
         if test_run_epochs is not None:
             out = do_test_run(cfg, graph, job_dir, test_run_epochs, logger,
                               device=device)
+        elif simulate:
+            out = run_communication_simulation(cfg, graph, logger)
         else:
             out = run_computation(cfg, graph, job_dir, logger, device=device)
     finally:

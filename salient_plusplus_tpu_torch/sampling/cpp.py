@@ -42,6 +42,15 @@ def _load_lib():
         _c_i32p, ctypes.c_int32, ctypes.c_uint64, _c_i32p, _c_i64p, _c_i32p,
         _c_i32p, _c_i32p, _c_i32p, _c_i32p, _c_i32p, _c_i32p,
     ]
+    _c_f64p = ctypes.POINTER(ctypes.c_double)
+    partition_args = [
+        _c_i64p, _c_i32p, ctypes.c_int64, ctypes.c_int32, _c_f64p,
+        ctypes.c_int32, _c_f64p, ctypes.c_uint64, ctypes.c_int32]
+    lib.sptpu_partition.restype = None
+    lib.sptpu_partition.argtypes = partition_args + [_c_i32p]
+    lib.sptpu_partition_ml.restype = None
+    lib.sptpu_partition_ml.argtypes = partition_args + [ctypes.c_int64,
+                                                        _c_i32p]
     lib.sptpu_count_dst.restype = None
     lib.sptpu_count_dst.argtypes = [
         _c_i32p, ctypes.c_int32, ctypes.c_int32,

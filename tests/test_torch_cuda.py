@@ -547,3 +547,78 @@ def test_cold_step_on_card_matches_cpu(cuda_device, mode):
     for k in gc:
         rel = float((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-12))
         assert rel < 1e-3, (k, rel)
+
+
+def test_vip_device_on_card_matches_cpu(cuda_device):
+    """``vip_analytical_device`` on the card against the same function on
+    the CPU and the float64 numpy recurrence (JAX's tolerance, rtol 5e-3,
+    atol 5e-5: the card's index_add_ adds in another order)."""
+    from salient_plusplus_tpu_torch.caching import vip
+    from salient_plusplus_tpu_torch.data import synthetic
+
+    g = synthetic.powerlaw_graph(name="vip", num_nodes=20000, avg_degree=10,
+                                 num_features=8, num_classes=4, seed=1)
+    pids = (np.arange(g.num_nodes) * 2 // g.num_nodes).astype(np.int32)
+    tipp = vip.partitionwise_train_idx(pids, g.split_idx["train"])
+    args = (g.rowptr, g.col, tipp, 512, [15, 10, 5])
+    card = vip.vip_analytical_device(*args, edge_chunk=1 << 14,
+                                     device=cuda_device)
+    cpu = vip.vip_analytical_device(*args, edge_chunk=1 << 14, device="cpu")
+    ref = vip.vip_analytical(*args)
+    for a, b, c in zip(card, cpu, ref):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-5)
+        np.testing.assert_allclose(a, c, rtol=5e-3, atol=5e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_assemble_features_world1_nccl(cuda_device, dtype):
+    """``assemble_features`` in a world-1 NCCL group equals ``table[n_id]``
+    bit for bit (every id is local), with zero rows past the count and the
+    hot prefix; K3 launches twice, three times with a cache; the fp8 wire
+    codec on the card equals it on the CPU."""
+    import socket
+
+    import torch.distributed as dist
+
+    from salient_plusplus_tpu_torch.parallel import exchange as X
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        rng = np.random.default_rng(5)
+        V, n, N_cap = 50000, 20000, 24000
+        table = torch.from_numpy(rng.standard_normal((V, 128)).astype(
+            np.float32)).to(dtype).to(cuda_device)
+        n_id = torch.from_numpy(rng.integers(0, V, N_cap).astype(
+            np.int32)).to(cuda_device)
+        count = torch.tensor(n, device=cuda_device)
+        offs = torch.tensor([0, V], device=cuda_device)
+        want = table[n_id.long()]
+        want[n:] = 0
+        cache = X.DeviceCache(torch.arange(0, V, 7, device=cuda_device),
+                              table[::7].contiguous())
+        for kw, k3 in (({}, 2), ({"cache": cache}, 3), ({"wire_fp8": True}, 2)):
+            before = G.pallas_gather_rows.launches
+            x, st = X.assemble_features(table, n_id, count, offs, 256, **kw)
+            torch.cuda.synchronize()
+            assert G.pallas_gather_rows.launches - before == k3
+            assert torch.equal(x, want)
+            assert (int(st.num_local), int(st.num_remote),
+                    int(st.num_cached), int(st.num_overflow),
+                    float(st.sent_bytes)) == (n, 0, 0, 0, 0.0)
+        x, st = X.assemble_features(table[:V // 2].contiguous(), n_id, count,
+                                    offs, 256, hot_size=V // 2)
+        hot = want.clone()
+        hot[n_id.long() >= V // 2] = 0
+        assert torch.equal(x, hot)
+        assert int(st.num_local) == int((n_id[:n] < V // 2).sum())
+        rows = table[n_id.long()[:4096]].view(1, 4096, 128)
+        on_card = X.fp8_wire_decode(X.fp8_wire_encode(rows), dtype)
+        on_cpu = X.fp8_wire_decode(X.fp8_wire_encode(rows.cpu()), dtype)
+        assert torch.equal(on_card.cpu(), on_cpu)
+        assert torch.equal(X._fp8_wire_exchange(rows), on_card)
+    finally:
+        dist.destroy_process_group()

@@ -148,7 +148,7 @@ def test_driver_cli_runs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--distribute_data", "true"],
-    ["--execution_mode", "communication_simulation"],
+    ["--distribute_data", "true", "--computation_mode", "frequency_cache"],
     ["--distribute_data", "true", "--hbm_fraction", "0.5"],
 ])
 def test_driver_rejects_what_later_slices_bring(tmp_path, flags):
@@ -157,6 +157,26 @@ def test_driver_rejects_what_later_slices_bring(tmp_path, flags):
                      "--train_fanouts", "3,2", "--num_layers", "2",
                      "--output_root", str(tmp_path), *flags],
                     device="cpu")
+
+
+def test_driver_communication_simulation_runs_on_the_host(tmp_path,
+                                                          monkeypatch):
+    """The simulation mode partitions, samples and counts on the host: the
+    CLI runs it without a card (parity with JAX: tests/test_torch_vip.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("SIM_PARTS", "3")
+    out = driver.main(["synth:V=1500,C=3,deg=6,F=8", "sim",
+                       "--execution_mode", "communication_simulation",
+                       "--train_fanouts", "4,3", "--train_batch_size", "64",
+                       "--cache_creation_epochs", "1", "--output_root",
+                       str(tmp_path)])
+    assert set(out) == {"vip-analytical", "degree"}
+    for by_alpha in out.values():
+        assert by_alpha[0.0]["cross"] > by_alpha[0.2]["cross"] > 0
+        for d in by_alpha.values():
+            assert d["total"] == d["internal"] + d["cross"] + d["cache_hits"]
+    with open(tmp_path / "sim" / "results.json") as f:
+        assert set(json.load(f)) == set(out)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -191,7 +211,12 @@ def test_port_imports_no_jax():
     for new in ("ops/gat_agg.py", "train/checkpoint.py", "models/layers.py",
                 "models/inference.py", "parallel/exchange.py",
                 "sampling/cold_cache.py", "sampling/oracle.py",
-                "train/cold_policy.py", "utils/data_collector.py"):
+                "train/cold_policy.py", "utils/data_collector.py",
+                "partition/partitioner.py", "partition/cli.py",
+                "data/partition_book.py", "data/reorder.py",
+                "caching/vip.py", "caching/simulate.py",
+                "caching/experiment.py", "caching/comm_budget.py",
+                "parallel/mesh.py", "sampling/shufflers.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
