@@ -70,7 +70,17 @@ them.
    step; ``assemble_features`` in a world-1 NCCL group over the bench
    table (plain, a VIP cache, a hot prefix, the fp8 wire) equal to
    ``table[n_id]`` bit for bit, K3 launched 2-3 times a call, timed; a
-   2-rank NCCL run of the same checks where the host has 2 cards.
+   2-rank NCCL run of the same checks where the host has 2 cards;
+9. the data-parallel trainer in a world-1 NCCL group: its SAGE step on
+   the bench graph at the bench shape (step time, edges/s, the profile's
+   busy and idle share, K1 4, K2 1 and K3 2 launches a step) beside
+   phase 5's single-card figures; 10 steps of a small shape on the card
+   and in a gloo subgroup on the CPU, losses within rtol 2e-2; sharded
+   layerwise inference over the bench graph against ``layerwise_
+   inference`` with the same weights (predictions agree on > 0.995 of the
+   nodes), s a layer, nodes/s, peak memory; where the host has 2 cards,
+   ``torchrun --nproc_per_node 2`` of the driver with ``--distribute_data
+   true --computation_mode frequency_cache`` on the 100k-node graph.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -1655,6 +1665,229 @@ def phase_exchange(g, spec, dev, power):
     log("  multi-GPU exchange leg: 2 ranks, NCCL, every case equal")
 
 
+# ---------------------------------------------------------------- phase 9
+def dist_trainer(g, dev, group=None, **over):
+    """A DistributedTrainer of one partition (every label 0) of ``g`` at
+    the bench config, ``over`` replacing config fields."""
+    from salient_plusplus_tpu_torch.config import RunConfig
+    from salient_plusplus_tpu_torch.train.dist_loop import DistributedTrainer
+
+    cfg = RunConfig(**{**BENCH_CFG, "num_workers": max(2, os.cpu_count()
+                                                        or 4), **over})
+    return DistributedTrainer(cfg, g, np.zeros(g.num_nodes, np.int32),
+                              group=group, device=dev)
+
+
+def dist_steps(tr, steps, warmup=0):
+    """``steps`` steps of epoch 1 after ``warmup`` ones: (losses, the
+    sampler's edges fed to the timed ones, the feed, the feeder)."""
+    feed, feeder = tr.epoch_feed(1)
+    check(len(feed) >= warmup + steps, "distributed epoch too short")
+    for _ in range(warmup):
+        tr.run_step(next(feeder))
+    e0 = feeder.edges_fed
+    losses = [tr.run_step(next(feeder))[0] for _ in range(steps)]
+    return losses, feeder.edges_fed - e0, feed, feeder
+
+
+def phase_dist_bench(tr, dev, power, single, warmup=20, steps=40):
+    """The data-parallel SAGE step at world 1 on the bench graph: step ms
+    and train edges/s on the host clock, the profile's busy ms and idle
+    share, and the launches of each kernel a step (K1 4, K2 1, K3 2
+    required), beside phase 5's single-card figures ``single``."""
+    feed, feeder = tr.epoch_feed(1)
+    check(len(feed) >= warmup + steps + 20, "distributed epoch too short")
+    for _ in range(warmup):
+        tr.run_step(next(feeder))
+    torch.cuda.synchronize(dev)
+    e0, t0 = feeder.edges_fed, time.perf_counter()
+    losses, counts = driven("distributed SAGE step, world 1 (timed steps)",
+                            lambda: [tr.run_step(next(feeder))[0]
+                                     for _ in range(steps)])
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          "distributed losses are not finite")
+    per_step = {k: v / steps for k, v in counts.items()}
+    check(per_step == {"sorted_segment_sum": 4,
+                       "fused_gather_segment_sum": 1, "gather_rows": 2},
+          f"distributed step launches {per_step}: K1 4, K2 1, K3 2 expected")
+    res = dict(step_ms=dt / steps * 1e3,
+               edges_per_s=(feeder.edges_fed - e0) / dt,
+               launches_per_step=per_step, r_cap=tr.r_cap,
+               starved_s=feeder.starved_dur, bucket_agree_s=feed.agree_s,
+               tight_steps=feed.tight_steps)
+    # the step's own host time: steps on batches already on the card, so
+    # neither the sampler nor the feed is in the window
+    batches = [next(feeder) for _ in range(8)]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for b in batches:
+        tr.run_step(b)
+    res["enqueue_ms"] = (time.perf_counter() - t0) / len(batches) * 1e3
+    torch.cuda.synchronize(dev)
+    res["prefetched_step_ms"] = ((time.perf_counter() - t0)
+                                 / len(batches) * 1e3)
+    del batches
+    log("  distributed bench: " + json.dumps(res) + f"  [{power}]")
+    res["profile"] = profile_window(lambda: tr.run_step(next(feeder)), 10,
+                                    "steps", power)
+    feed.it.close()
+    sp = single.get("profile") or {}
+    dp = res["profile"] or {}
+    log(f"  world-1 data-parallel vs single-card (phase 5): step "
+        f"{res['step_ms']:.3f} vs {single['step_ms']:.3f} ms, "
+        f"{res['edges_per_s']:.4g} vs {single['edges_per_s']:.4g} edges/s, "
+        f"busy {dp.get('busy_ms')} vs {sp.get('busy_ms')} ms/step, idle "
+        f"share {dp.get('idle_share')} vs {sp.get('idle_share')}  [{power}]")
+    return res
+
+
+def phase_dist_card_vs_cpu(dev, steps=10):
+    """10 steps of the data-parallel trainer at a small shape (a 10k-node
+    planted graph, batch 512, fanouts [10, 5], hidden 128, 2 layers,
+    dropout 0) on the card in the NCCL group and on the CPU in a gloo
+    subgroup, from the same seed (the same weights and batches): every
+    step's loss within rtol 2e-2, the bf16 tolerance of the CPU tests
+    (tests/test_torch_dist_trainer.py)."""
+    import torch.distributed as dist
+
+    from salient_plusplus_tpu_torch.data import synthetic
+
+    g = synthetic.planted_partition(name="dcmp", num_nodes=10_000,
+                                    num_classes=32, avg_degree=12,
+                                    num_features=64, seed=0)
+    small = dict(train_batch_size=512, train_fanouts=[10, 5],
+                 hidden_features=128, num_layers=2, dropout=0.0,
+                 num_workers=2)
+    gloo = dist.new_group([0], backend="gloo")
+    out = []
+    for d, group in ((torch.device("cpu"), gloo), (dev, None)):
+        tr = dist_trainer(g, d, group=group, **small)
+        (losses, _, feed, _), c = driven(
+            f"distributed small shape on {d.type}",
+            lambda: dist_steps(tr, steps))
+        feed.it.close()
+        out.append([float(v) for v in losses])
+    check(min(c.values()) > 0, f"the card's run bypassed a kernel: {c}")
+    cpu, card = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"  distributed card vs cpu, {steps} steps: losses card "
+        f"{[round(v, 5) for v in card]} cpu {[round(v, 5) for v in cpu]}, "
+        f"max rel diff {rel:.3g} (stated 2e-2)")
+    check(rel < 2e-2, f"distributed card vs cpu: rel diff {rel}")
+    dist.destroy_process_group(gloo)
+
+
+def phase_dist_layerwise(tr, g, dev, power, single):
+    """Sharded layerwise inference of the trainer's SAGE at world 1 over
+    the bench graph (its one partition is the graph plus 64 ghost rows
+    that pad it to 128), against ``layerwise_inference`` of the same
+    model over the same table: predictions agree on > 0.995 of the nodes;
+    s a layer, nodes/s, peak memory, launches (K2 1 and K3 2 a chunk and
+    layer); beside phase 5's single-card run ``single``."""
+    from salient_plusplus_tpu_torch.models.inference import (
+        layerwise_inference)
+    from salient_plusplus_tpu_torch.train import dist_inference as DI
+
+    layer_s = []
+
+    class TimedEngine(DI.ShardedEngine):
+        def propagate(self, core, emb, feat_out):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().propagate(core, emb, feat_out)
+            torch.cuda.synchronize()
+            layer_s.append(time.perf_counter() - t0)
+            return out
+
+    V, L = g.num_nodes, tr.cfg.num_layers
+    t0 = time.perf_counter()
+    eng = TimedEngine(tr, chunk=LAYERWISE_CHUNK)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logp, counts = driven("sharded layerwise inference, world 1", lambda:
+                          DI.run_layerwise_zoo("SAGE", tr.state.model,
+                                               tr.features, eng))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunks = -(-tr.part_size // LAYERWISE_CHUNK)
+    check(counts["fused_gather_segment_sum"] == chunks * L
+          and counts["gather_rows"] == 2 * chunks * L,
+          f"sharded layerwise launches {counts}: K2 {chunks * L}, K3 "
+          f"{2 * chunks * L} expected")
+    ref = layerwise_inference("SAGE", tr.state.model, g.rowptr, g.col,
+                              tr.features[:V], chunk=LAYERWISE_CHUNK)
+    check(bool(torch.isfinite(logp).all()), "sharded layerwise not finite")
+    agree = float((logp[:V].argmax(-1) == ref.argmax(-1)).float().mean())
+    err = float((logp[:V] - ref).abs().max())
+    res = dict(V=V, chunks_per_layer=chunks, r_cap=eng.r_cap,
+               engine_setup_s=setup_s, layer_s=layer_s, total_s=total_s,
+               nodes_per_s=V / total_s, max_memory_allocated=peak,
+               agreement=agree, max_abs_diff=err, launches=counts)
+    log("  sharded layerwise: " + json.dumps(res) + f"  [{power}]")
+    log(f"  sharded vs single-card layerwise (phase 5): {total_s:.3f} vs "
+        f"{single['total_s']:.3f} s, peak memory {peak} vs "
+        f"{single['max_memory_allocated']} B")
+    check(agree > 0.995, f"sharded layerwise agrees on {agree} of the nodes")
+
+
+def phase_dist_two_cards(V=100_000, C=32):
+    """``torchrun --nproc_per_node 2`` of the driver with
+    ``--distribute_data true --computation_mode frequency_cache`` on the
+    100k-node planted graph, one epoch; final_valid above phase 4's floor
+    (chance). Only where the host has 2 cards."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        log(f"  2-rank data-parallel driver leg not run: device_count="
+            f"{n_dev}")
+        return
+    with tempfile.TemporaryDirectory() as root:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_port", str(_free_port()),
+               "-m", "salient_plusplus_tpu_torch.driver",
+               f"synth:V={V},C={C},deg=12,F=64", "dp", "--epochs", "1",
+               "--distribute_data", "true", "--computation_mode",
+               "frequency_cache", "--output_root", root]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"torchrun failed: {p.stderr[-3000:]}")
+        with open(os.path.join(root, "dp", "results.json")) as f:
+            r = json.load(f)[0]
+    log(f"  2-rank driver: losses={r['losses']} final_valid="
+        f"{r['final_valid']:.4f} epoch_s={r['epoch_times']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(all(np.isfinite(r["losses"])) and r["final_valid"] > 1.0 / C,
+          f"2-rank driver: {r}")
+
+
+def phase_dist(g, dev, power, single, single_lw):
+    """Phase 9 in a world-1 NCCL group (120 s collective timeout)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        t0 = time.perf_counter()
+        tr = dist_trainer(g, dev)
+        log(f"  distributed trainer built in {time.perf_counter() - t0:.1f}"
+            f" s: spec {tr.train_spec} tight {tr.train_tight} r_cap "
+            f"{tr.r_cap}")
+        phase_dist_bench(tr, dev, power, single)
+        phase_dist_layerwise(tr, g, dev, power, single_lw)
+        del tr
+        phase_dist_card_vs_cpu(dev)
+    finally:
+        dist.destroy_process_group()
+    phase_dist_two_cards()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1723,7 +1956,7 @@ def main() -> int:
           and steps["gather_rows"] == 1,
           f"bench step launches {steps}: K1 4, K2 1, K3 1 expected")
     full_res = res
-    phase_layerwise_bench(trainer, dev, power)
+    full_lw = phase_layerwise_bench(trainer, dev, power)
     # per step: GAT K1 3 (message sums), GCN K1 6 (3 hops, forward and
     # mirrored backward); K3 1 (features), K2 0 (no gsrc). One trainer on
     # the card at a time, so each peak memory is its own
@@ -1758,9 +1991,13 @@ def main() -> int:
     phase_partitioned_driver(dev)
     phase_simulation(full_res["step_ms"] * 1e-3)
     phase_exchange(bench_graph, bench_spec, dev, power)
-    del bench_graph
     log(f"phase 8 partitioning, VIP, simulation, exchange: "
         f"{time.perf_counter() - t:.1f} s")
+    # phase 9: the data-parallel trainer
+    t = time.perf_counter()
+    phase_dist(bench_graph, dev, power, full_res, full_lw)
+    del bench_graph
+    log(f"phase 9 data-parallel trainer: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

@@ -11,15 +11,24 @@ The flags are the JAX driver's (every RunConfig field). The port runs
 single-card training and a batchwise or layerwise (``--final_test_mode
 layerwise``) final test on a CUDA device, with the feature table all on
 the card or, with ``--hbm_fraction`` below 1, its cold tail in host RAM;
-``main(argv, device="cpu")`` runs it on the CPU. A partitioned dataset is
-trained on one card from all its shards, as the JAX driver does off its
-distributed path. Checkpoints go to the job directory; ``RESUME=1``
-restarts a trial from its latest one, and ``--do_test_run e0,e1,...``
-scores saved epochs instead of training. ``--execution_mode
-communication_simulation`` partitions the graph into ``SIM_PARTS``
-(default 4) parts and sweeps the cache schemes' communication volume on
-the host, with no model and no device. ``--distribute_data`` raises
-NotImplementedError naming its ROADMAP.md item.
+``main(argv, device="cpu")`` runs it on the CPU. Checkpoints go to the
+job directory; ``RESUME=1`` restarts a trial from its latest one, and
+``--do_test_run e0,e1,...`` scores saved epochs instead of training.
+``--execution_mode communication_simulation`` partitions the graph into
+``SIM_PARTS`` (default 4) parts and sweeps the cache schemes'
+communication volume on the host, with no model and no device.
+
+Data-parallel training: launched as several processes (``torchrun
+--nproc_per_node N -m salient_plusplus_tpu_torch.driver ...``), the
+driver joins the process group first (NCCL on the card, gloo with
+``device="cpu"``); with ``--distribute_data true`` and more than one rank
+each rank trains its partition of the features (``DistributedTrainer``),
+and ``--computation_mode frequency_cache`` adds the VIP cache. A
+partitioned dataset must have one part a rank and is loaded one shard a
+rank; any other graph is partitioned into one part a rank on every rank
+alike. Rank 0 writes the job's files. With one process the driver trains
+on one card, as the JAX driver does with one device; a partitioned
+dataset is then trained from all its shards.
 """
 
 from __future__ import annotations
@@ -29,13 +38,14 @@ import os
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 
 class PartitionedDatasetRef:
     """An on-disk partition-reordered dataset (``<name>-reordered-k{K}``,
     written by ``partition/cli.py``). The single-card paths call
-    :meth:`load_full` (``load_full_dataset``); the data-parallel trainer
-    will load one shard a rank."""
+    :meth:`load_full`; the data-parallel trainer loads one shard a rank
+    (``DistributedTrainer.from_partitioned``)."""
 
     def __init__(self, root: str, name: str, num_parts: int):
         self.root, self.name, self.num_parts = root, name, num_parts
@@ -53,13 +63,17 @@ class PartitionedDatasetRef:
             split_idx=pg.split_idx, num_classes=pg.num_classes)
 
 
-def load_full_dataset(cfg, name: str):
-    """``load_dataset``, with a partitioned dataset loaded whole: what
-    every single-card path trains, scores or simulates on."""
-    graph = load_dataset(cfg, name)
+def _full(graph):
+    """A partitioned dataset loaded whole: what every single-card path
+    trains, scores or simulates on."""
     if isinstance(graph, PartitionedDatasetRef):
-        graph = graph.load_full()
+        return graph.load_full()
     return graph
+
+
+def load_full_dataset(cfg, name: str):
+    """``load_dataset``, with a partitioned dataset loaded whole."""
+    return _full(load_dataset(cfg, name))
 
 
 def load_dataset(cfg, name: str):
@@ -93,13 +107,6 @@ def load_dataset(cfg, name: str):
         "Queue 1 item 18 (slice 5)")
 
 
-def _reject_unported(cfg) -> None:
-    if cfg.distribute_data:
-        raise NotImplementedError(
-            "--distribute_data: ROADMAP.md Queue 1 item 17 (the "
-            "data-parallel trainer)")
-
-
 # --cache_strategy → the cache schemes the simulation sweeps. "vip" keeps
 # the JAX driver's pair; "simulation" maps as the JAX package's
 # DistributedTrainer.create_cache maps it (the JAX driver passes it on
@@ -131,13 +138,58 @@ def run_communication_simulation(cfg, graph, logger):
     return results
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _distributed_trainer(cfg, graph, logger, device):
+    """The data-parallel trainer of the default group: one shard a rank
+    of a partitioned dataset, else the graph partitioned into one part a
+    rank (deterministic, so every rank computes the same labels)."""
+    from .partition import multiconstraint_partition
+    from .train.dist_loop import DistributedTrainer
+
+    world = _world()
+    if isinstance(graph, PartitionedDatasetRef):
+        if graph.num_parts != world:
+            raise ValueError(f"{graph.name} has {graph.num_parts} parts "
+                             f"for {world} ranks")
+        tr = DistributedTrainer.from_partitioned(
+            cfg, graph.root, graph.name, device=device, logger=logger)
+    else:
+        labels = multiconstraint_partition(graph.rowptr, graph.col, world,
+                                           seed=cfg.seed)
+        tr = DistributedTrainer(cfg, graph, labels, device=device,
+                                logger=logger)
+    if cfg.computation_mode == "frequency_cache":
+        tr.create_cache()
+    return tr
+
+
 def run_computation(cfg, graph, job_dir: str, logger, device=None):
-    """Trial loop → epochs → periodic valid → final test (single card)."""
+    """Trial loop → epochs → periodic valid → final test: data-parallel
+    with ``--distribute_data`` and more than one rank, else on one card.
+    The data-parallel trainer is built once for all trials (partitioning,
+    calibration and the cache do not depend on the trial)."""
     from .train.loop import Trainer
 
+    distributed = cfg.distribute_data and _world() > 1
+    if not distributed:
+        graph = _full(graph)
     results = []
+    dist_trainer = None
     for trial in range(cfg.trials):
-        trainer = Trainer(cfg, graph, logger=logger, device=device)
+        if distributed:
+            if dist_trainer is None:
+                dist_trainer = _distributed_trainer(cfg, graph, logger,
+                                                    device)
+            trainer = dist_trainer
+        else:
+            trainer = Trainer(cfg, graph, logger=logger, device=device)
         res = trainer.run_trial(trial, checkpoint_dir=job_dir)
         logger.log("performance_breakdown", trainer.stats.summary())
         results.append({"trial": trial, "best_epoch": res.best_epoch,
@@ -161,7 +213,7 @@ def do_test_run(cfg, graph, job_dir: str, checkpoint_epochs, logger,
     from .train import checkpoint as ckpt
     from .train.loop import Trainer
 
-    trainer = Trainer(cfg, graph, logger=logger, device=device)
+    trainer = Trainer(cfg, _full(graph), logger=logger, device=device)
     out = []
     for epoch in checkpoint_epochs:
         trainer.state = ckpt.restore(job_dir, trainer.state, 0, epoch)
@@ -175,7 +227,11 @@ def do_test_run(cfg, graph, job_dir: str, checkpoint_epochs, logger,
 
 def main(argv=None, device=None):
     """Run the CLI; ``device=None`` means CUDA. The simulation mode runs
-    on the host and touches no device."""
+    on the host and touches no device. Under a multi-process launcher the
+    process group is joined before anything else."""
+    from .parallel.mesh import maybe_initialize_distributed
+
+    maybe_initialize_distributed(device)
     from .config import RunConfig
     from .utils.device import resolve_device
     from .utils.logging import RunLogger
@@ -201,20 +257,24 @@ def main(argv=None, device=None):
         rest = rest[:i] + rest[i + 2:]
     cfg = RunConfig.from_args(rest)
     cfg = cfg.replace(dataset_name=dataset_name, job_name=job_name)
-    _reject_unported(cfg)
     simulate = (test_run_epochs is None
                 and cfg.execution_mode == "communication_simulation")
     if not simulate:
         device = resolve_device(device)
 
+    # rank 0 writes the job's files; each rank logs to a file of its own
+    writer = _rank() == 0
     job_dir = os.path.join(cfg.output_root, job_name)
     os.makedirs(job_dir, exist_ok=True)
-    with open(os.path.join(job_dir, "args.json"), "w") as f:
-        f.write(cfg.to_json())
-    logger = RunLogger(job_dir, host=os.environ.get("HOSTNAME", "host0"),
-                       verbose=cfg.verbose)
+    if writer:
+        with open(os.path.join(job_dir, "args.json"), "w") as f:
+            f.write(cfg.to_json())
+    host = os.environ.get("HOSTNAME", "host0")
+    if _world() > 1:
+        host = f"{host}-rank{_rank()}"
+    logger = RunLogger(job_dir, host=host, verbose=cfg.verbose)
 
-    graph = load_full_dataset(cfg, dataset_name)
+    graph = load_dataset(cfg, dataset_name)
     if cfg.make_deterministic:
         np.random.seed(cfg.seed)
     try:
@@ -222,7 +282,7 @@ def main(argv=None, device=None):
             out = do_test_run(cfg, graph, job_dir, test_run_epochs, logger,
                               device=device)
         elif simulate:
-            out = run_communication_simulation(cfg, graph, logger)
+            out = run_communication_simulation(cfg, _full(graph), logger)
         else:
             out = run_computation(cfg, graph, job_dir, logger, device=device)
     finally:
@@ -230,8 +290,9 @@ def main(argv=None, device=None):
 
         wait_for_async_saves()  # never exit with checkpoint IO in flight
         logger.flush()
-    with open(os.path.join(job_dir, "results.json"), "w") as f:
-        json.dump(out, f, indent=2, default=str)
+    if writer:
+        with open(os.path.join(job_dir, "results.json"), "w") as f:
+            json.dump(out, f, indent=2, default=str)
     return out
 
 

@@ -175,6 +175,8 @@ class BatchBuffers:
         self.cold_scale = None
         self.cold_count = z(1, np.int32)
         self.cold_len = 0
+        # owner-served tier: [world, cold_r_cap] cold ids by owner
+        self.cold_req = None
         self.gsrc = None
         self.ddeg = None
         self.ddeg_offsets = None
@@ -321,7 +323,9 @@ class BatchBuffers:
         """Attach every auxiliary buffer a ``FastSamplerConfig`` calls for
         (cold tier / gsrc / ddeg / wire-pack): the one place that decides
         which fields a buffer set carries."""
-        if cfg.hot_cutoff is not None:
+        if cfg.cold_owner_mode:
+            self.attach_cold_requests(cfg.cold_world, cfg.cold_r_cap)
+        elif cfg.hot_cutoff is not None or cfg.cold_part_size is not None:
             # cache mode ships a prefix of these at a miss rung, which is
             # at least one 128-row rung
             cap = (max(cfg.cold_cap, 128) if cfg.cold_cache is not None
@@ -364,12 +368,21 @@ class BatchBuffers:
                 self.fill_ddeg()
             return 0
         dropped = 0
-        if cfg.hot_cutoff is not None:
+        if cfg.cold_owner_mode:
+            dropped = self.fill_cold_requests(cfg.cold_part_size,
+                                              cfg.cold_hot_size)
+        elif cfg.cold_part_size is not None:
+            dropped = self.fill_cold_partitioned(
+                cfg.x_cold, cfg.cold_part_size, cfg.cold_hot_size,
+                x_scale=cfg.x_cold_scale)
+        elif cfg.hot_cutoff is not None:
             dropped = self.fill_cold(cfg.x_cold, cfg.hot_cutoff,
                                      x_scale=cfg.x_cold_scale)
         if cfg.compress_dst:
             self.fill_ddeg()
         if cfg.emit_gsrc:
+            # the data-parallel tiers keep gsrc off; this is the
+            # single-card tier's slack remap
             self.fill_gsrc(cfg.hot_cutoff)
         if cfg.pack_wire:
             self.fill_pack()
@@ -433,6 +446,57 @@ class BatchBuffers:
                            if with_scale else None)
         self.cold_count[0] = 0
         self.cold_len = cold_cap
+
+    def attach_cold_requests(self, world: int, cold_r_cap: int):
+        """Owner-served tier: the workers only sort the cold frontier ids
+        into per-owner request slots; the rows come from the owning
+        rank's host RAM through the trainer's all_to_all before the step
+        (``train/dist_loop.py``), so each host keeps O(V/k) cold rows."""
+        self.cold_req = np.full((world, cold_r_cap), -1, np.int32)
+        self.cold_pos = _host_zeros(world * cold_r_cap, np.int32, self.pin)
+        self.cold_rows = None
+        self.cold_scale = None
+        self.cold_count[0] = 0
+        self.cold_len = world * cold_r_cap
+
+    def fill_cold_requests(self, part_size: int, hot_size: int) -> int:
+        """Pack the cold frontier vertices into the request matrix: slot
+        (o, j) of ``cold_req`` holds the j-th cold global id owned by
+        partition o and ``cold_pos[o * cap + j]`` its frontier slot (pads:
+        -1 and the frontier cap, which the overlay drops). The served rows
+        come back in this layout. Returns the over-cap (dropped) count."""
+        world, cap = self.cold_req.shape
+        n = int(self.level_sizes[-1])
+        ids = self.n_id[:n].astype(np.int64)
+        pos = np.flatnonzero(ids % part_size >= hot_size).astype(np.int32)
+        owner = (ids[pos] // part_size).astype(np.int32)
+        order = np.argsort(owner, kind="stable")
+        pos, owner = pos[order], owner[order]
+        cnt = np.bincount(owner, minlength=world)[:world]
+        starts = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int64)
+        rank = np.arange(len(owner)) - starts[owner]
+        keep = rank < cap
+        slot = owner[keep] * cap + rank[keep]
+        self.cold_req.fill(-1)
+        self.cold_pos.fill(self.n_id.shape[0])
+        self.cold_req.reshape(-1)[slot] = ids[pos[keep]].astype(np.int32)
+        self.cold_pos[slot] = pos[keep]
+        self.cold_count[0] = int(keep.sum())
+        return int(len(owner) - int(keep.sum()))
+
+    def fill_cold_partitioned(self, x_cold: np.ndarray, part_size: int,
+                              hot_size: int, x_scale=None) -> int:
+        """Replicated data-parallel tier: every partition keeps its first
+        ``hot_size`` rows on the device and ``x_cold`` concatenates every
+        partition's cold tail, so global id -> cold row is
+        (id // S)·(S − H) + (id mod S) − H. Returns the dropped count."""
+        n = int(self.level_sizes[-1])
+        ids = self.n_id[:n].astype(np.int64)
+        local = ids % part_size
+        pos = np.flatnonzero(local >= hot_size).astype(np.int32)
+        cold_idx = ((ids[pos] // part_size) * (part_size - hot_size)
+                    + local[pos] - hot_size)
+        return self._fill_cold_rows(x_cold, pos, cold_idx, x_scale)
 
     def _fill_cold_rows(self, x_cold, pos: np.ndarray,
                         cold_idx: np.ndarray, x_scale=None) -> int:
@@ -535,7 +599,8 @@ class BatchBuffers:
             level_sizes=_t(self.level_sizes), edges=edges,
             y=_t(self.y), seed_count=_t0(self.seed_count, 0),
             overflow=_t(self.overflow), gsrc=_t(self.gsrc),
-            cold_rows=_t_rows(self.cold_rows[:cl]) if cold else None,
+            cold_rows=(_t_rows(self.cold_rows[:cl])
+                       if cold and self.cold_rows is not None else None),
             cold_pos=_t(self.cold_pos[:cl]) if cold else None,
             cold_count=_t0(self.cold_count, 0) if cold else None,
             cold_scale=(_t(self.cold_scale[:cl])

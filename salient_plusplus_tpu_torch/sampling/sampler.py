@@ -6,8 +6,9 @@ call) and recycle preallocated padded buffer sets through a bounded pool.
 
 Invariants carried over:
 - *equal iteration counts*: ``split_seeds`` with ``exact_num_batches``
-  splits the epoch's seed ids into exactly that many nearly-equal chunks
-  (the multi-GPU slice's trainer will ask for it);
+  splits the epoch's seed ids into exactly that many nearly-equal chunks,
+  so every rank of the data-parallel trainer runs the same number of
+  steps;
 - *deterministic batch order*: batches are released to the consumer in
   epoch order via a reorder buffer;
 - *per-batch deterministic RNG*: seed derived from (base_seed, epoch,
@@ -87,6 +88,8 @@ class FastSamplerConfig:
     base_seed: int = 0
     num_workers: int = 3
     max_batches_in_flight: int = 8
+    # exactly this many nearly-equal batches an epoch (data-parallel ranks)
+    exact_num_batches: Optional[int] = None
     # host cold tier (hbm_fraction < 1): vertices with id >= hot_cutoff
     # have their rows in x_cold (host RAM, row i = global row
     # hot_cutoff + i; uint16 bf16 bits, or uint8 fp8 bytes with
@@ -96,6 +99,17 @@ class FastSamplerConfig:
     x_cold: Optional[np.ndarray] = None
     cold_cap: int = 0
     x_cold_scale: Optional[np.ndarray] = None
+    # the data-parallel tiers: each partition (cold_part_size ids) keeps
+    # its first cold_hot_size rows on the device. Replicated: x_cold
+    # concatenates every partition's cold tail and the workers gather the
+    # rows. Owner-served (cold_owner_mode): the workers only sort the cold
+    # ids into a [cold_world, cold_r_cap] request matrix; the owners serve
+    # the rows through the trainer's all_to_all before the step
+    cold_part_size: Optional[int] = None
+    cold_hot_size: Optional[int] = None
+    cold_owner_mode: bool = False
+    cold_world: int = 0
+    cold_r_cap: int = 0
     # device cold-row cache (sampling/cold_cache.py): a shared
     # HostColdCache managing the feature table's slack region; cold
     # classification then runs at CONSUMPTION time (slot-eviction safety)
@@ -131,7 +145,7 @@ class FastSamplerIter:
         self.sampler = sampler
         cfg = sampler.cfg
         idx = sampler.get_epoch_idx(epoch)
-        self.batches = split_seeds(idx, cfg.batch_size)
+        self.batches = split_seeds(idx, cfg.batch_size, cfg.exact_num_batches)
         self.num_batches = len(self.batches)
         self.stats = SamplerStats()
         self.epoch = epoch
@@ -280,7 +294,7 @@ class FastPreSampler:
     def presample(self, epoch: int) -> List[BatchBuffers]:
         cfg = self.sampler.cfg
         batches = split_seeds(self.sampler.get_epoch_idx(epoch),
-                              cfg.batch_size)
+                              cfg.batch_size, cfg.exact_num_batches)
 
         def work(bno):
             bufs = BatchBuffers(cfg.spec)
@@ -327,7 +341,8 @@ class FastSampler:
         self.epoch = epoch
 
     def __len__(self):
-        return len(split_seeds(self.idx, self.cfg.batch_size))
+        return len(split_seeds(self.idx, self.cfg.batch_size,
+                               self.cfg.exact_num_batches))
 
     def __iter__(self) -> FastSamplerIter:
         return FastSamplerIter(self, self.epoch)

@@ -650,17 +650,28 @@ class Trainer:
 
 def run_trial_impl(trainer, trial: int = 0,
                    checkpoint_dir: Optional[str] = None) -> TrialResult:
-    """THE trial loop: epochs, periodic validation, best-snapshot
+    """THE trial loop of the single-card ``Trainer`` and the data-parallel
+    ``DistributedTrainer``: epochs, periodic validation, best-snapshot
     tracking, checkpoints, the ``RESUME=1`` restart and the final test
     scored from the best snapshot, batchwise or layerwise
-    (``final_test_mode``).
+    (``final_test_mode``). ``train_epoch`` returns the epoch's mean loss
+    or a dict holding it under ``"loss"``.
 
     With ``checkpoint_dir``: each new best validation accuracy saves the
     train state there (``use_async=cfg.async_checkpoint``), and with
     ``RESUME=1`` the trial restores its latest checkpoint and starts at the
     epoch after it. As in the JAX package, the best accuracy and the
-    plateau scheduler start afresh in a resumed run."""
+    plateau scheduler start afresh in a resumed run.
+
+    With a group of several ranks (a trainer with ``world`` > 1) every
+    rank runs this loop: the resume epoch is the least over the ranks
+    (-1 for none), so all run the same epochs; rank 0 writes each
+    checkpoint and its metadata line, then every rank meets at a barrier.
+    Validation accuracy and the loss are the group's, so every rank takes
+    the same decisions."""
     cfg = trainer.cfg
+    multi = getattr(trainer, "world", 1) > 1
+    writer = getattr(trainer, "rank", 0) == 0
     trainer._trial_reset(trial)
     res = TrialResult()
     best_state = None
@@ -669,6 +680,12 @@ def run_trial_impl(trainer, trial: int = 0,
     start_epoch = 0
     if checkpoint_dir and os.environ.get("RESUME", "0") == "1":
         resume = ckpt.latest_epoch(checkpoint_dir, trial)
+        if multi:
+            local = -1 if resume is None else resume
+            agreed = trainer._agree_min(local)
+            if agreed != local:
+                trainer.logger.log("resume_mismatch", trial, local, agreed)
+            resume = agreed if agreed >= 0 else None
         if resume is not None:
             trainer.state = ckpt.restore(checkpoint_dir, trainer.state,
                                          trial, resume)
@@ -677,6 +694,8 @@ def run_trial_impl(trainer, trial: int = 0,
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         loss = trainer.train_epoch(epoch)
+        if isinstance(loss, dict):
+            loss = loss["loss"]
         dt = time.perf_counter() - t0
         trainer.state.epoch = epoch + 1
         trainer.logger.log("epoch_time", trial, epoch, round(dt, 3))
@@ -692,10 +711,12 @@ def run_trial_impl(trainer, trial: int = 0,
                 res.best_epoch = epoch
                 best_state = {k: v.detach().clone() for k, v in
                               trainer.state.model.state_dict().items()}
-                if checkpoint_dir:
+                if checkpoint_dir and writer:
                     ckpt.save(checkpoint_dir, trainer.state, trial=trial,
                               epoch=epoch, acc=acc,
                               use_async=cfg.async_checkpoint)
+                if checkpoint_dir and multi:
+                    trainer._barrier()
     if cfg.async_checkpoint:
         ckpt.wait_for_async_saves()
     if best_state is not None:

@@ -622,3 +622,103 @@ def test_assemble_features_world1_nccl(cuda_device, dtype):
         assert torch.equal(X._fp8_wire_exchange(rows), on_card)
     finally:
         dist.destroy_process_group()
+
+
+def _world1_group(backend="nccl"):
+    """A world-1 process group on a free local port (120 s timeout)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def _dist_graph_cfg(**kw):
+    from salient_plusplus_tpu_torch.config import RunConfig
+    from salient_plusplus_tpu_torch.data import synthetic
+
+    g = synthetic.planted_partition(name="dp", num_nodes=4096, num_classes=4,
+                                    avg_degree=8, num_features=16, seed=21)
+    base = dict(train_batch_size=128, train_fanouts=[4, 3, 2],
+                batchwise_test_fanouts=[5, 5, 5], final_test_fanouts=[5, 5, 5],
+                hidden_features=32, num_layers=3, lr=0.01, num_workers=2,
+                calibration_batches=2, seed=3, dropout=0.0)
+    base.update(kw)
+    return g, RunConfig(**base)
+
+
+def test_dist_trainer_world1_nccl_epoch(cuda_device):
+    """The data-parallel trainer in a world-1 NCCL group on the card and
+    in a gloo subgroup on the CPU, from the same seed: one epoch each,
+    epoch losses within rtol 2e-2 (bf16, as the CPU parity tests), no
+    exchange overflow, batchwise and sharded layerwise valid accuracy
+    above twice chance and within 0.02 of each other."""
+    import torch.distributed as dist
+
+    from salient_plusplus_tpu_torch.train.dist_loop import DistributedTrainer
+
+    g, cfg = _dist_graph_cfg()
+    _world1_group()
+    try:
+        gloo = dist.new_group([0], backend="gloo")
+        res = []
+        for d, group in ((torch.device("cpu"), gloo), (cuda_device, None)):
+            tr = DistributedTrainer(cfg, g, np.zeros(g.num_nodes, np.int32),
+                                    group=group, device=d)
+            m = tr.train_epoch(0)
+            res.append((m, tr.evaluate("valid"),
+                        tr.evaluate_layerwise(("valid",))["valid"]))
+        (mc, ac, lc), (mg, ag, lg) = res
+        assert mg["overflow"] == mc["overflow"] == 0
+        assert mg["iters"] == mc["iters"] and mg["local"] == mc["local"]
+        np.testing.assert_allclose(mg["loss"], mc["loss"], rtol=2e-2)
+        assert min(ac, ag, lc, lg) > 0.5
+        assert abs(ag - ac) <= 0.02 and abs(lg - lc) <= 0.02
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("tier", ["all_on_card", "owner_cold_fp8"])
+def test_dist_step_launches(cuda_device, tier):
+    """A 3-layer SAGE step of the data-parallel trainer launches K1 4
+    times (the mirrored hops, forward and backward), K2 once (layer 0
+    from the assembled frontier) and K3 twice (the exchange's served and
+    local rows); the owner-served cold tier adds no kernel (its overlay
+    is an index_copy_)."""
+    import collections
+
+    import torch.distributed as dist
+
+    from salient_plusplus_tpu_torch.train.dist_loop import DistributedTrainer
+
+    kw = ({} if tier == "all_on_card" else
+          dict(hbm_fraction=0.5, cold_mode="owner", cold_fp8=True))
+    g, cfg = _dist_graph_cfg(**kw)
+    _world1_group()
+    try:
+        tr = DistributedTrainer(cfg, g, np.zeros(g.num_nodes, np.int32),
+                                device=cuda_device)
+        feed, feeder = tr.epoch_feed(0)
+        wrappers = (S.sorted_segment_sum_mxu, A.fused_gather_segment_sum,
+                    G.pallas_gather_rows)
+        before = [w.launches for w in wrappers]
+        issued = collections.deque()
+        for _ in range(3):
+            batch = next(feeder)
+            if tier != "all_on_card":
+                batch = tr._with_cold_rows(batch, feed, issued, tr.cold_r_cap)
+                assert batch.cold_rows is not None
+            loss, ex = tr.run_step(batch)
+            assert torch.isfinite(loss)
+        torch.cuda.synchronize()
+        got = [(w.launches - b) / 3 for w, b in zip(wrappers, before)]
+        assert got == [4, 1, 2], got
+        feed.it.close()
+    finally:
+        dist.destroy_process_group()

@@ -151,12 +151,80 @@ def test_driver_cli_runs_on_cpu(tmp_path):
     ["--distribute_data", "true", "--computation_mode", "frequency_cache"],
     ["--distribute_data", "true", "--hbm_fraction", "0.5"],
 ])
-def test_driver_rejects_what_later_slices_bring(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.main(["synth:V=500,C=3,deg=4,F=8", "j", "--epochs", "1",
-                     "--train_fanouts", "3,2", "--num_layers", "2",
-                     "--output_root", str(tmp_path), *flags],
-                    device="cpu")
+def test_driver_distribute_data_single_process(tmp_path, flags):
+    """With one process the flag trains on one card, as the JAX driver
+    does with one device."""
+    out = driver.main(["synth:V=1500,C=3,deg=6,F=8", "j", "--epochs", "1",
+                       "--train_batch_size", "128", "--train_fanouts", "3,2",
+                       "--batchwise_test_fanouts", "4,4",
+                       "--final_test_fanouts", "4,4", "--num_layers", "2",
+                       "--hidden_features", "16", "--num_workers", "1",
+                       "--calibration_batches", "2", "--lr", "0.01",
+                       "--output_root", str(tmp_path), *flags], device="cpu")
+    assert np.isfinite(out[0]["losses"]).all()
+    assert out[0]["final_valid"] > 1 / 3  # chance
+    assert (tmp_path / "j" / "host0_logs.txt").exists()
+
+
+@pytest.fixture(scope="module")
+def two_rank_driver(tmp_path_factory):
+    """driver.main with --distribute_data in 2 gloo ranks
+    (tests/_torch_dist_worker.py::driver_rank): the VIP cache with the
+    owner-served cold tier, 2 epochs, then RESUME=1 to 3 epochs; then
+    training from partition.cli's 2-part output, one shard a rank."""
+    from tests import _torch_dist_worker as W
+    from salient_plusplus_tpu_torch.partition import cli
+
+    root = tmp_path_factory.mktemp("dist_driver")
+    path = cli.main(["synth:V=2000,C=4,deg=6,F=8", "--parts", "2",
+                     "--out_root", str(root), "--fanouts", "4,3",
+                     "--minibatch", "64"])
+    W.wait(W.start(W.driver_rank, (_free_port(), str(root),
+                                   os.path.basename(path))),
+           "driver ranks")
+    return root
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("job", ["cache", "partitioned"])
+def test_driver_distribute_data_two_ranks(two_rank_driver, job):
+    root = two_rank_driver
+    runs = []
+    for r in range(2):
+        with open(root / f"{job}_rank{r}.json") as f:
+            runs.append(json.load(f)["out"][0])
+    for k in ("best_epoch", "final_valid", "final_test", "losses"):
+        assert runs[0][k] == runs[1][k], k  # every rank scored the same
+    res = runs[0]
+    assert np.isfinite(res["losses"]).all()
+    assert res["final_valid"] > 0.5  # 4 classes: chance is 0.25
+    job_dir = root / ("cache" if job == "cache" else "part")
+    with open(job_dir / "results.json") as f:  # written by rank 0
+        assert json.load(f)[0]["final_valid"] == res["final_valid"]
+    assert (job_dir / "args.json").exists()
+    logs = sorted(p.name for p in job_dir.glob("*_logs.txt"))
+    assert [n[-15:] for n in logs] == ["-rank0_logs.txt", "-rank1_logs.txt"]
+    if job == "cache":
+        with open(job_dir / logs[0]) as f:
+            text = f.read()
+        assert "EFFECTIVE_CACHE_SIZE" in text and "COLD_WIRE_BYTES" in text
+        with open(root / "resume_rank0.json") as f:
+            resume = json.load(f)
+        # RESUME=1 restarts after the latest epoch the 2-epoch run saved
+        latest = resume["latest_before"]
+        assert latest in (0, 1)
+        assert len(resume["out"][0]["losses"]) == 3 - (latest + 1)
+    else:
+        for r in range(2):
+            with open(root / f"refused_rank{r}.json") as f:
+                assert json.load(f) is True  # replicated cold needs all shards
 
 
 def test_driver_communication_simulation_runs_on_the_host(tmp_path,
@@ -216,7 +284,9 @@ def test_port_imports_no_jax():
                 "data/partition_book.py", "data/reorder.py",
                 "caching/vip.py", "caching/simulate.py",
                 "caching/experiment.py", "caching/comm_budget.py",
-                "parallel/mesh.py", "sampling/shufflers.py"):
+                "parallel/mesh.py", "sampling/shufflers.py",
+                "parallel/spmd.py", "train/dist_loop.py",
+                "train/dist_inference.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
