@@ -80,7 +80,14 @@ them.
    inference`` with the same weights (predictions agree on > 0.995 of the
    nodes), s a layer, nodes/s, peak memory; where the host has 2 cards,
    ``torchrun --nproc_per_node 2`` of the driver with ``--distribute_data
-   true --computation_mode frequency_cache`` on the 100k-node graph.
+   true --computation_mode frequency_cache`` on the 100k-node graph;
+10. the readiness drill's CLI (``utils/readiness_drill.py``) in a child at
+   products widths and 250k nodes: the graph written by ``GraphData.save``,
+   ``partition.cli --parts 4`` in a child, then the driver in a child on
+   the card for one epoch at the default model with a layerwise final
+   test; each stage's seconds and peak RSS, finite losses, final_valid
+   inside the band random labels allow, and the child's K1, K2 and K3
+   launches (set to 0 before and written after its ``driver.main``).
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -1888,6 +1895,81 @@ def phase_dist(g, dev, power, single, single_lw):
     phase_dist_two_cards()
 
 
+# ---------------------------------------------------------------- phase 10
+DRILL_NODES = 250_000   # ogbn-products' widths at a tenth of its nodes
+DRILL_CLASSES = 47
+
+
+def random_label_band(n: int, classes: int = DRILL_CLASSES) -> tuple:
+    """The accuracies that a model can reach on ``n`` nodes whose labels
+    are drawn uniformly from ``classes`` independently of the graph and
+    the features (the drill's labels): chance within six standard
+    deviations of a binomial share."""
+    p = 1.0 / classes
+    sd = (p * (1.0 - p) / n) ** 0.5
+    return p - 6 * sd, p + 6 * sd
+
+
+def phase_drill(power, nodes=DRILL_NODES, parts=4):
+    """The readiness drill's CLI (``utils/readiness_drill.py``) in a child
+    at products widths: ``powerlaw_graph`` with 100 features in fp16, 47
+    classes, average degree 15, 8% train and 2% valid, written by
+    ``GraphData.save``; ``partition.cli --parts 4`` in a child; then the
+    driver in a child on the card at the default model (SAGE, hidden 256,
+    batch 1024, fanouts 15,10,5) for one epoch with a layerwise final
+    test. The driver's child sets the kernels' launch counts to 0 just
+    before ``driver.main`` and writes them just after. Returns the
+    drill's report."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "drill.json")
+        p = subprocess.run(
+            [sys.executable, "-m",
+             "salient_plusplus_tpu_torch.utils.readiness_drill",
+             "--nodes", str(nodes), "--parts", str(parts), "--epochs", "1",
+             "--final_test_mode", "layerwise", "--root", root,
+             "--out", out], capture_output=True, text=True, timeout=900)
+        log("\n".join("  | " + ln for ln in p.stdout.splitlines()
+                      if ln.startswith(("[drill]", "trial", "partition"))))
+        check(p.returncode == 0, f"the drill failed: {p.stderr[-3000:]}")
+        with open(out) as f:
+            rep = json.load(f)
+    check_drill(rep, nodes, power)
+    log(f"  drill total {time.perf_counter() - t0:.1f} s  [{power}]")
+    return rep
+
+
+def check_drill(rep, nodes, power):
+    """Phase 10's checks of a drill report: each stage's seconds and peak
+    RSS, finite losses, ``final_valid`` inside the band that random labels
+    allow, and the driver child's launches: K1 >= 4 a train step, K2 and
+    K3 >= 1 a train step plus 1 a layerwise chunk and layer."""
+    for name, st in rep["stages"].items():
+        log(f"  drill {name}: {st['seconds']} s, peak RSS "
+            f"{st['peak_rss_gb']} GB  [{power}]")
+        check(st["peak_rss_gb"] > 0, f"drill {name}: no peak RSS")
+    r = rep["results"][0]
+    n_valid = int(0.02 * nodes)
+    lo, hi = random_label_band(n_valid)
+    log(f"  drill: {nodes} nodes, {rep['num_edges']} edges; losses="
+        f"{r['losses']} final_valid={r['final_valid']:.4f} (random labels: "
+        f"chance {1 / DRILL_CLASSES:.4f}, band [{lo:.4f}, {hi:.4f}] over "
+        f"{n_valid} valid nodes) final_test={r['final_test']:.4f} "
+        f"epoch_s={r['epoch_times']}")
+    check(all(np.isfinite(r["losses"])), "drill losses are not finite")
+    check(lo <= r["final_valid"] <= hi,
+          f"drill final_valid {r['final_valid']} outside [{lo}, {hi}]")
+    log(f"  drill layerwise final test {rep['layerwise_s']} s; the driver "
+        f"child's peak allocated {rep['max_memory_allocated']} B  [{power}]")
+    steps = -(-int(0.08 * nodes) // 1024)
+    chunks = -(-nodes // LAYERWISE_CHUNK)
+    K1, K2, K3 = "sorted_segment_sum", "fused_gather_segment_sum", "gather_rows"
+    log(f"  launches in the drill's driver child: {rep['launches']}")
+    _at_least(rep["launches"], {K1: 4 * steps, K2: steps + 3 * chunks,
+                                K3: steps + 3 * chunks},
+              f"drill, {steps} train steps + {chunks} chunks x 3 layers")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1998,6 +2080,12 @@ def main() -> int:
     phase_dist(bench_graph, dev, power, full_res, full_lw)
     del bench_graph
     log(f"phase 9 data-parallel trainer: {time.perf_counter() - t:.1f} s")
+    # phase 10: the readiness drill at products widths, the driver in a
+    # child on the card
+    t = time.perf_counter()
+    torch.cuda.empty_cache()  # give the cached blocks back for the child
+    phase_drill(power)
+    log(f"phase 10 readiness drill: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

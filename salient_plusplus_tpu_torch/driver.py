@@ -6,7 +6,11 @@ Usage:
 
 <dataset> is a GraphData directory name under --dataset_root, a
 partitioned ``<name>-reordered-k{K}`` directory written by
-``partition/cli.py``, or a synthetic spec "synth:V=100000,C=32,deg=12,F=64".
+``partition/cli.py`` or ``utils/download_datasets.py``, a synthetic spec
+"synth:V=100000,C=32,deg=12,F=64", or else an OGB dataset name
+(``ogbn-products``, ``MAG240``, ...): ``data/ogb.py`` ingests it into
+--dataset_root (needs the ``ogb`` package, and raises an ImportError that
+names the alternatives without it).
 The flags are the JAX driver's (every RunConfig field). The port runs
 single-card training and a batchwise or layerwise (``--final_test_mode
 layerwise``) final test on a CUDA device, with the feature table all on
@@ -101,10 +105,14 @@ def load_dataset(cfg, name: str):
             return PartitionedDatasetRef(cfg.dataset_root, name,
                                          meta["num_parts"])
         return GraphData.load(cfg.dataset_root, name)
-    raise NotImplementedError(
-        f"dataset {name!r} is neither a synth: spec nor a GraphData "
-        f"directory under {cfg.dataset_root}; OGB ingest is ROADMAP.md "
-        "Queue 1 item 18 (slice 5)")
+    # any other name is ingested from OGB (needs the ogb package)
+    if name == "MAG240":  # the homogeneous MAG240M papers component
+        from .data.ogb import load_mag240
+
+        return load_mag240(cfg.dataset_root)
+    from .data.ogb import load_ogb
+
+    return load_ogb(name, cfg.dataset_root)
 
 
 # --cache_strategy → the cache schemes the simulation sweeps. "vip" keeps

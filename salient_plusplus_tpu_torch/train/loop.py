@@ -623,6 +623,7 @@ class Trainer:
         if name in UNSERVED:
             self.logger.log("LAYERWISE_UNSUPPORTED_FALLBACK", name)
             return {s: self.evaluate(s) for s in splits}
+        t0 = time.perf_counter()
         logp = layerwise_inference(
             name, self.state.model, self.graph.rowptr, self.graph.col,
             self.features, chunk=self.cfg.inference_chunk)
@@ -635,6 +636,8 @@ class Trainer:
                                               np.int64)).to(self.device)
             out[s] = float((pred[idx] == y[idx]).to(torch.float32).mean())
             self.logger.log("layerwise_acc", s, out[s])
+        # the accuracies above were read back, so the device has finished
+        self.logger.log("layerwise_s", round(time.perf_counter() - t0, 3))
         return out
 
     # --- run_trial_impl hooks -----------------------------------------

@@ -1,5 +1,5 @@
 from .device import resolve_device
 from .logging import RunLogger
-from .timing import RuntimeStats
+from .timing import RuntimeStats, Timer
 
-__all__ = ["RunLogger", "RuntimeStats", "resolve_device"]
+__all__ = ["RunLogger", "RuntimeStats", "Timer", "resolve_device"]

@@ -11,7 +11,31 @@ import statistics
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
+
+
+class Timer:
+    """Context-manager wall timer (the reference's fast_trainer/utils.py:
+    381-404). ``callback(name, seconds)`` is called when the block ends."""
+
+    def __init__(self, name: str = "", callback: Optional[Callable] = None):
+        self.name = name
+        self.callback = callback
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self._t0
+        if self.callback:
+            self.callback(self.name, self.elapsed)
+        return False
+
+    def stop(self) -> float:
+        self.elapsed = time.perf_counter() - self._t0
+        return self.elapsed
 
 
 class RuntimeStats:

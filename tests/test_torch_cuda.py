@@ -722,3 +722,18 @@ def test_dist_step_launches(cuda_device, tier):
         feed.it.close()
     finally:
         dist.destroy_process_group()
+
+
+def test_readiness_drill_on_card(cuda_device, tmp_path):
+    """The readiness drill at 20k nodes with products widths (100
+    features, 47 classes, fanouts 15,10,5, batch 1024), stage 4 in a
+    child on the card: every stage reports its peak RSS, the losses are
+    finite and the child launched K1, K2 and K3."""
+    from salient_plusplus_tpu_torch.utils.readiness_drill import run_drill
+
+    rep = run_drill(nodes=20_000, parts=2, epochs=1, root=str(tmp_path),
+                    final_test_mode="layerwise")
+    assert all(st["peak_rss_gb"] > 0 for st in rep["stages"].values())
+    assert np.isfinite(rep["results"][0]["losses"]).all()
+    assert min(rep["launches"].values()) > 0, rep["launches"]
+    assert rep["max_memory_allocated"] > 0 and rep["layerwise_s"] > 0

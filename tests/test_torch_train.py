@@ -286,7 +286,10 @@ def test_port_imports_no_jax():
                 "caching/experiment.py", "caching/comm_budget.py",
                 "parallel/mesh.py", "sampling/shufflers.py",
                 "parallel/spmd.py", "train/dist_loop.py",
-                "train/dist_inference.py"):
+                "train/dist_inference.py", "data/ogb.py",
+                "data/salient_import.py", "partition/quality_bench.py",
+                "utils/download_datasets.py", "utils/configure_env.py",
+                "utils/exp_launcher.py", "utils/readiness_drill.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):

@@ -7,11 +7,13 @@ several checkouts of this repository, one after another on one NVIDIA GPU:
 Each checkout runs in a process of its own, in the order given, with its
 own ``chip_smoke.py`` and its own kernels (built in that checkout): the
 1M-node power-law bench graph, 20 warm-up and 40 timed steps of each model
-at the bench config. Give two checkouts in turns (parent, change, change,
-parent) to compare them on one card. Each process prints one line
-``AB {"checkout": ..., "SAGE": {...}, ...}`` with each model's step time
-(ms, host clock) and train edges/s; the last lines repeat them as a table
-with the card's name and power limit.
+at the bench config, then layerwise inference of the SAGE model over the
+whole graph (``chip_smoke.phase_layerwise_bench``). Give two checkouts in
+turns (parent, change, change, parent) to compare them on one card. Each
+process prints one line ``AB {"checkout": ..., "SAGE": {...}, ...,
+"layerwise": {...}}`` with each model's step time (ms, host clock) and
+train edges/s, and the layerwise seconds and nodes/s; the last lines
+repeat them as a table with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ for m in ("SAGE", "GAT", "GCN"):
     out[m] = {k: r[k] for k in ("step_ms", "edges_per_s",
                                 "h2d_bytes_per_batch")}
     del t
+lw = cs.phase_layerwise_bench(tr, dev, power)
+out["layerwise"] = {k: lw[k] for k in ("total_s", "nodes_per_s")}
 print("AB " + json.dumps(dict(out, checkout=sys.argv[1], power=power)),
       flush=True)
 """
@@ -59,9 +63,12 @@ def main(argv) -> int:
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         rows.append(json.loads(line[-1][3:]))
     for r in rows:
+        lw = r["layerwise"]
         print(f"{r['checkout']}: " + "  ".join(
             f"{m} {r[m]['step_ms']:.3f} ms {r[m]['edges_per_s'] / 1e6:.2f}M e/s"
-            for m in ("SAGE", "GAT", "GCN")) + f"  [{r['power']}]")
+            for m in ("SAGE", "GAT", "GCN")) + f"  layerwise "
+            f"{lw['total_s']:.3f} s {lw['nodes_per_s'] / 1e6:.3f}M nodes/s"
+            f"  [{r['power']}]")
     return 0
 
 
