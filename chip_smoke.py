@@ -71,23 +71,37 @@ them.
    table (plain, a VIP cache, a hot prefix, the fp8 wire) equal to
    ``table[n_id]`` bit for bit, K3 launched 2-3 times a call, timed; a
    2-rank NCCL run of the same checks where the host has 2 cards;
-9. the data-parallel trainer in a world-1 NCCL group: its SAGE step on
-   the bench graph at the bench shape (step time, edges/s, the profile's
-   busy and idle share, K1 4, K2 1 and K3 2 launches a step) beside
-   phase 5's single-card figures; 10 steps of a small shape on the card
-   and in a gloo subgroup on the CPU, losses within rtol 2e-2; sharded
-   layerwise inference over the bench graph against ``layerwise_
-   inference`` with the same weights (predictions agree on > 0.995 of the
-   nodes), s a layer, nodes/s, peak memory; where the host has 2 cards,
-   ``torchrun --nproc_per_node 2`` of the driver with ``--distribute_data
-   true --computation_mode frequency_cache`` on the 100k-node graph;
+9. the data-parallel trainer in a world-1 NCCL group joined through the
+   port's bootstrap (``maybe_initialize_distributed`` from ``env://``),
+   so the rank's heartbeat is live: its SAGE step on the bench graph at
+   the bench shape (step time, edges/s, the host stages a step under the
+   JAX package's names, the profile's busy and idle share, K1 4, K2 1 and
+   K3 2 launches a step) beside phase 5's single-card figures; the step
+   with the heartbeat on and off in turns (on, off, off, on, twice); 10 steps
+   of a small shape on the card and in a gloo subgroup on the CPU, losses
+   within rtol 2e-2; sharded layerwise inference over the bench graph
+   against ``layerwise_inference`` with the same weights (predictions
+   agree on > 0.995 of the nodes), s a layer, nodes/s, peak memory; a
+   checkpoint and the group's barrier; the heartbeat never fired; where
+   the host has 2 cards, ``torchrun --nproc_per_node 2`` of the driver
+   with ``--distribute_data true --computation_mode frequency_cache`` on
+   the 100k-node graph, and the chaos pair of phase 11 in NCCL on 2 cards
+   with rank 1 stopped;
 10. the readiness drill's CLI (``utils/readiness_drill.py``) in a child at
    products widths and 250k nodes: the graph written by ``GraphData.save``,
    ``partition.cli --parts 4`` in a child, then the driver in a child on
    the card for one epoch at the default model with a layerwise final
    test; each stage's seconds and peak RSS, finite losses, final_valid
    inside the band random labels allow, and the child's K1, K2 and K3
-   launches (set to 0 before and written after its ``driver.main``).
+   launches (set to 0 before and written after its ``driver.main``);
+11. rank-death fail-fast: the chaos pair of ``tests/_torch_chaos_worker.py``
+   (two raw processes, one gloo group on the host's CPU, a 10 s
+   heartbeat, one epoch of a 2-rank DistributedTrainer), four at once:
+   rank 1 calls ``os._exit(42)``, raises an uncaught exception, or stops
+   itself with SIGSTOP; rank 0 must end non-zero without finishing epoch
+   1, by the heartbeat within its timeout of the crash and within 3× of
+   the stop. In the fourth pair rank 0 sleeps 3× the timeout before the
+   barrier while rank 1 waits in it: both must end with 0.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -98,6 +112,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1697,33 +1712,75 @@ def dist_steps(tr, steps, warmup=0):
     return losses, feeder.edges_fed - e0, feed, feeder
 
 
+def _stage_marks(feed, feeder) -> dict:
+    """The data-parallel trainer's host stages so far (the sums that
+    ``train/dist_loop.py::train_epoch`` records), and the feed's
+    starvation."""
+    return dict(feed.stages(feeder), feed_starved=feeder.starved_dur)
+
+
+def _steps_ms(tr, feeder, dev, steps):
+    """ms a step of ``steps`` data-parallel steps on the host clock."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tr.run_step(next(feeder))
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+HB_TURN_TIMEOUT_S = 3.0   # the heartbeat of phase 9's on turns
+
+
 def phase_dist_bench(tr, dev, power, single, warmup=20, steps=40):
     """The data-parallel SAGE step at world 1 on the bench graph: step ms
-    and train edges/s on the host clock, the profile's busy ms and idle
-    share, and the launches of each kernel a step (K1 4, K2 1, K3 2
-    required), beside phase 5's single-card figures ``single``."""
+    and train edges/s on the host clock, the host stages a step (the JAX
+    package's sample_wait, assemble_h2d and bucket_psum; no cold tier
+    here, so cold_serve is 0), the profile's busy ms and idle share, and
+    the launches of each kernel a step (K1 4, K2 1, K3 2 required), beside
+    phase 5's single-card figures ``single``; then the step with the
+    heartbeat on and off in turns of 30 steps (on, off, off, on, twice),
+    the on turns at a ``HB_TURN_TIMEOUT_S`` heartbeat so that each holds
+    beats."""
+    from salient_plusplus_tpu_torch.parallel import mesh
+
+    turns_on = (True, False, False, True) * 2   # the heartbeat, in turns
+    turn = 30
     feed, feeder = tr.epoch_feed(1)
-    check(len(feed) >= warmup + steps + 20, "distributed epoch too short")
+    check(len(feed) >= warmup + steps + len(turns_on) * turn + 20,
+          "distributed epoch too short")
     for _ in range(warmup):
         tr.run_step(next(feeder))
     torch.cuda.synchronize(dev)
+    m0 = _stage_marks(feed, feeder)
     e0, t0 = feeder.edges_fed, time.perf_counter()
     losses, counts = driven("distributed SAGE step, world 1 (timed steps)",
                             lambda: [tr.run_step(next(feeder))[0]
                                      for _ in range(steps)])
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    m1 = _stage_marks(feed, feeder)
     check(bool(torch.isfinite(torch.stack(losses)).all()),
           "distributed losses are not finite")
     per_step = {k: v / steps for k, v in counts.items()}
     check(per_step == {"sorted_segment_sum": 4,
                        "fused_gather_segment_sum": 1, "gather_rows": 2},
           f"distributed step launches {per_step}: K1 4, K2 1, K3 2 expected")
-    res = dict(step_ms=dt / steps * 1e3,
+    step_ms = dt / steps * 1e3
+    stages = {k: (m1[k] - m0[k]) / steps * 1e3 for k in m0}
+    stages["cold_serve"] = 0.0
+    res = dict(step_ms=step_ms,
                edges_per_s=(feeder.edges_fed - e0) / dt,
                launches_per_step=per_step, r_cap=tr.r_cap,
-               starved_s=feeder.starved_dur, bucket_agree_s=feed.agree_s,
+               stages_ms_per_step=stages,
+               stage_share_of_step={k: v / step_ms
+                                    for k, v in stages.items()},
                tight_steps=feed.tight_steps)
+    check(sum(stages[k] for k in ("sample_wait", "assemble_h2d",
+                                  "bucket_psum", "cold_serve")) <= step_ms,
+          f"host stages {stages} exceed the step's {step_ms} ms")
+    check(stages["bucket_psum"] == 0.0,
+          "bucket_psum at world 1: no collective decides the bucket there")
     # the step's own host time: steps on batches already on the card, so
     # neither the sampler nor the feed is in the window
     batches = [next(feeder) for _ in range(8)]
@@ -1737,6 +1794,33 @@ def phase_dist_bench(tr, dev, power, single, warmup=20, steps=40):
                                  / len(batches) * 1e3)
     del batches
     log("  distributed bench: " + json.dumps(res) + f"  [{power}]")
+    # the heartbeat's cost: the same steps with it on and off, in turns.
+    # A turn is shorter than the default 10 s beat period, so the on turns
+    # run a heartbeat of a 3 s timeout (a beat every 0.3 s, 33x the
+    # default rate) and each must hold at least one beat; the default
+    # heartbeat is restarted after the turns.
+    turns, beats = [], []
+    for on in turns_on:
+        if on:
+            hb = mesh.start_heartbeat(HB_TURN_TIMEOUT_S)
+        else:
+            mesh.stop_heartbeat()
+        turns.append((on, _steps_ms(tr, feeder, dev, turn)))
+        if on:
+            beats.append(hb.beats)
+    mesh.start_heartbeat()
+    check(min(beats) > 0, f"an on turn held no beat: {beats}")
+    hb_on = [ms for on, ms in turns if on]
+    hb_off = [ms for on, ms in turns if not on]
+    gap = sum(hb_on) / len(hb_on) - sum(hb_off) / len(hb_off)
+    spread = max(hb_off) - min(hb_off)
+    res["heartbeat_turns_ms"] = turns
+    res["heartbeat_beats_per_on_turn"] = beats
+    log(f"  heartbeat on/off/off/on x2, {turn} steps a turn, the on turns "
+        f"at a {HB_TURN_TIMEOUT_S:g} s timeout (beats {beats}): "
+        f"{[round(ms, 3) for _, ms in turns]} ms a step; mean on - off "
+        f"{gap:+.3f} ms, spread of the off turns {spread:.3f} ms: "
+        f"{'within' if abs(gap) <= spread else 'outside'} it  [{power}]")
     res["profile"] = profile_window(lambda: tr.run_step(next(feeder)), 10,
                                     "steps", power)
     feed.it.close()
@@ -1872,15 +1956,28 @@ def phase_dist_two_cards(V=100_000, C=32):
 
 
 def phase_dist(g, dev, power, single, single_lw):
-    """Phase 9 in a world-1 NCCL group (120 s collective timeout)."""
-    import datetime
-
+    """Phase 9 in a world-1 NCCL group, joined as a launcher's rank joins
+    it (``maybe_initialize_distributed`` from ``env://``), so the rank's
+    heartbeat is live throughout: the trainer build, the bench (with the
+    heartbeat's on/off turns), the sharded layerwise pass and a
+    checkpoint written before the group's barrier, as
+    ``run_trial_impl`` writes one; it must never fire."""
     import torch.distributed as dist
 
-    dist.init_process_group("nccl", rank=0, world_size=1,
-                            init_method=f"tcp://127.0.0.1:{_free_port()}",
-                            timeout=datetime.timedelta(seconds=120))
+    from salient_plusplus_tpu_torch.parallel import mesh
+    from salient_plusplus_tpu_torch.train import checkpoint as ckpt
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
+        check(mesh.maybe_initialize_distributed() and
+              dist.get_backend() == "nccl", "the bootstrap made no group")
+        hb = mesh.current_heartbeat()
+        check(hb is not None, "the bootstrap started no heartbeat")
+        log(f"  heartbeat live: timeout {hb.timeout_s:g} s, a beat every "
+            f"{hb.period_s:g} s")
         t0 = time.perf_counter()
         tr = dist_trainer(g, dev)
         log(f"  distributed trainer built in {time.perf_counter() - t0:.1f}"
@@ -1888,11 +1985,120 @@ def phase_dist(g, dev, power, single, single_lw):
             f"{tr.r_cap}")
         phase_dist_bench(tr, dev, power, single)
         phase_dist_layerwise(tr, g, dev, power, single_lw)
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ckpt.save(d, tr.state, trial=0, epoch=0, acc=0.0)
+            tr._barrier()
+            log(f"  checkpoint and barrier: {time.perf_counter() - t0:.2f} s")
+        hb = mesh.current_heartbeat()
+        check(hb is not None and hb.beats > 0,
+              "the heartbeat stopped in phase 9")
+        log(f"  heartbeat never fired: {hb.beats} beats since its last "
+            f"start (after the bench's turns), through the build, bench, "
+            f"layerwise and checkpoint barrier")
         del tr
         phase_dist_card_vs_cpu(dev)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh.stop_heartbeat()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     phase_dist_two_cards()
+    phase_dist_two_cards_kill()
+
+
+# ------------------------------------ phase 11 (and phase 9's 2-card leg)
+CHAOS_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "_torch_chaos_worker.py")
+CHAOS_HEARTBEAT_S = 10   # the worker's heartbeat_timeout_s
+
+
+def chaos_pair(victim, how, device="cpu", timeout=120):
+    """The chaos pair of ``tests/_torch_chaos_worker.py``: two raw
+    processes, one 2-rank group from the environment, one epoch; then
+    rank ``victim`` exits, raises, stops itself or (``wait``) sleeps
+    before the barrier. Returns (return codes, outputs, seconds from the
+    victim's end of epoch 0 to the end of the wait: the survivor's exit,
+    or both ranks' with ``wait``). Both processes are ended before it
+    returns."""
+    from salient_plusplus_tpu_torch.experiments import run_ranks
+
+    rcs, outs, t_end = run_ranks(
+        [CHAOS_WORKER, str(victim), how, device], 2, timeout,
+        until=None if how == "wait" else 1 - victim, check=False)
+    m = re.search(r"EPOCH0_DONE (\S+)", outs[victim])
+    return rcs, outs, None if m is None else t_end - float(m.group(1))
+
+
+def check_chaos(label, victim, how, rcs, outs, dt, power):
+    """The survivor ended non-zero after epoch 0 and before epoch 1's end;
+    a crashed peer (an uncaught exception) is reported by the heartbeat
+    within its timeout, a stopped one within 3x; with ``wait`` both ranks
+    end with 0 and the heartbeat never fires."""
+    from salient_plusplus_tpu_torch.parallel.mesh import HEARTBEAT_EXIT_CODE
+
+    s = 1 - victim
+    why = [ln for ln in outs[s].splitlines()
+           if ln.startswith(("heartbeat:", "FAILFAST"))]
+    log(f"  {label}: rank {victim} {how}; return codes {rcs}, "
+        f"{dt if dt is None else round(dt, 2)} s from the victim's epoch 0 "
+        f"to the end: {[w[:160] for w in why]}  [{power}]")
+    check("EPOCH0_DONE" in outs[victim] and "EPOCH0_DONE" in outs[s],
+          f"{label}: epoch 0 did not end: {outs[s][-2000:]}")
+    if how == "wait":
+        check(rcs == [0, 0] and not why and dt is not None and
+              dt > 3 * CHAOS_HEARTBEAT_S,
+              f"{label}: the long wait did not end cleanly: {rcs}, {why}")
+        return
+    check(rcs[s] not in (0, None) and
+          "EPOCH1_DONE_UNEXPECTED" not in outs[s],
+          f"{label}: the survivor did not fail fast: {outs[s][-2000:]}")
+    if how in ("raise", "stop"):
+        limit = CHAOS_HEARTBEAT_S * (1 if how == "raise" else 3)
+        check(rcs[s] == HEARTBEAT_EXIT_CODE and dt is not None and
+              dt < limit,
+              f"{label}: the heartbeat did not end the survivor within "
+              f"{limit} s: {rcs}, {dt}")
+
+
+def phase_chaos(power):
+    """Phase 11: rank-death fail-fast on the card's host. The chaos pair
+    in gloo on the CPU, four at once: rank 1 exits (``os._exit(42)``),
+    rank 1 raises (its heartbeat writes ``dead`` at exit, which ends rank
+    0), rank 1 stops itself (``SIGSTOP``, its sockets open: only the
+    heartbeat ends rank 0), and rank 0 sleeps 3x the timeout before the
+    barrier while rank 1 waits in it (both end with 0)."""
+    cases = [(1, "exit"), (1, "raise"), (1, "stop"), (0, "wait")]
+    out = [None] * len(cases)
+
+    def run(i):
+        out[i] = chaos_pair(*cases[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (victim, how), (rcs, outs, dt) in zip(cases, out):
+        check_chaos("chaos pair, gloo", victim, how, rcs, outs, dt, power)
+
+
+def phase_dist_two_cards_kill():
+    """The chaos pair on 2 cards in NCCL, rank 1 stopped: the heartbeat
+    must end rank 0, which waits inside an NCCL collective. Only where the
+    host has 2 cards."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        log(f"  2-card NCCL kill leg not run: device_count={n_dev}")
+        return
+    rcs, outs, dt = chaos_pair(1, "stop", device="cuda")
+    check_chaos("chaos pair, NCCL on 2 cards", 1, "stop", rcs, outs, dt,
+                nvidia_smi())
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2086,6 +2292,10 @@ def main() -> int:
     torch.cuda.empty_cache()  # give the cached blocks back for the child
     phase_drill(power)
     log(f"phase 10 readiness drill: {time.perf_counter() - t:.1f} s")
+    # phase 11: rank-death fail-fast, the chaos pair on the host's CPU
+    t = time.perf_counter()
+    phase_chaos(power)
+    log(f"phase 11 rank-death fail-fast: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

@@ -124,11 +124,13 @@ class RunConfig:
     # dynamic-range scale) on the wire: halves the dominant distributed
     # payload vs bf16 (the reference ships fp16, transferers.py:507-531)
     # at ≤2^-3 relative feature error; local/cached/cold rows stay exact.
-    # DEFAULT ON per the accuracy study (docs/fp8_study.json +
-    # experiments/fp8_study.py): on the non-saturating tracking task with
-    # NO cache and fully_random balancing — every remote row quantized —
-    # the validation curves match bf16 within seed-to-seed noise
-    # (max gap 0.0039 vs noise 0.0135). WIRE_BYTES logs the receipt.
+    # DEFAULT ON per the port's own accuracy study
+    # (docs/fp8_study_torch.json, experiments/fp8_study.py of this
+    # package: 8 gloo ranks, the port's exchange and codec): on the
+    # non-saturating tracking task with NO cache and fully_random
+    # balancing — every remote row quantized — the validation curves
+    # match bf16 within seed-to-seed noise (max gap 0.0044 vs noise
+    # 0.0093; with the fp8 cold tier 0.0040). WIRE_BYTES logs the receipt.
     wire_fp8: bool = True
     # device cold-row cache (host cold tier, gsrc models): number of
     # feature-table slack rows kept as a persistent cache of cold rows.

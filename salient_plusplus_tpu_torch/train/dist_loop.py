@@ -47,7 +47,7 @@ from ..sampling.shufflers import (
 from ..utils.device import resolve_device, synchronize
 from ..utils.logging import RunLogger
 from ..utils.timing import RuntimeStats
-from .loop import calibrate_spec, run_trial_impl
+from .loop import calibrate_spec, refuse_unlabeled_train, run_trial_impl
 from .pipeline import DeviceFeeder
 from .state import create_train_state
 
@@ -76,15 +76,22 @@ class _RankFeed:
     With a tight bucket, a batch ships in it only when every rank's batch
     fits: the fit bit goes into one tiny ``all_reduce`` when the batch is
     pulled, and is read one pull later, so the collective's latency hides
-    behind a step. Under the owner-served cold tier each batch's request
-    matrix is copied out (the buffers go back to the sampler's pool) and
-    queued for the trainer's cold exchange, in batch order."""
+    behind a step (at world 1 the rank's own bit decides, with no
+    collective, as in the JAX package's one-process run). Under the
+    owner-served cold tier each batch's request matrix is copied out (the
+    buffers go back to the sampler's pool) and queued for the trainer's
+    cold exchange, in batch order.
+
+    The host seconds of the JAX package's stages, on the thread that
+    feeds: ``sample_wait`` blocked on the samplers, ``bucket_psum`` in the
+    agreement's collective, ``assemble`` copying the cold requests (the
+    batch build and its copy are the feeder's ``put_dur``)."""
 
     def __init__(self, trainer: "DistributedTrainer", it, tight):
         self.tr, self.it, self.tight = trainer, it, tight
         self.cold_reqs = collections.deque()
         self.tight_steps = 0
-        self.agree_s = 0.0
+        self.sample_wait = self.bucket_psum = self.assemble = 0.0
         self._pending = None
         self._started = False
 
@@ -94,16 +101,26 @@ class _RankFeed:
     def recycle(self, bufs) -> None:
         self.it.recycle(bufs)
 
+    def stages(self, feeder) -> Dict[str, float]:
+        """The JAX package's host stages so far, but ``cold_serve`` (the
+        trainer's): host seconds since the feed began."""
+        return {"sample_wait": self.sample_wait,
+                "assemble_h2d": feeder.put_dur + self.assemble,
+                "bucket_psum": self.bucket_psum}
+
     def _pull(self):
+        t0 = time.perf_counter()
         try:
             bufs = next(self.it)
         except StopIteration:
             return None
+        finally:
+            self.sample_wait += time.perf_counter() - t0
         fut = None
-        if self.tight is not None:
+        if self.tight is not None and self.tr.world > 1:
             t0 = time.perf_counter()
             fut = self.tr._allsum_start([0 if bufs.bucket is not None else 1])
-            self.agree_s += time.perf_counter() - t0
+            self.bucket_psum += time.perf_counter() - t0
         return bufs, fut
 
     def __iter__(self):
@@ -118,14 +135,19 @@ class _RankFeed:
             raise StopIteration
         self._pending = self._pull()  # the next agreement is on its way
         bufs, fut = cur
-        if fut is not None:
-            t0 = time.perf_counter()
-            fit = self.tr._allsum_finish(fut)[0] == 0
-            self.agree_s += time.perf_counter() - t0
+        if self.tight is not None:
+            if fut is None:  # world 1: the rank's own fit bit
+                fit = bufs.bucket is not None
+            else:
+                t0 = time.perf_counter()
+                fit = self.tr._allsum_finish(fut)[0] == 0
+                self.bucket_psum += time.perf_counter() - t0
             bufs.bucket = self.tight if fit else None
             self.tight_steps += int(fit)
         if self.tr._owner_cold:
+            t0 = time.perf_counter()
             self.cold_reqs.append(bufs.cold_req.copy())
+            self.assemble += time.perf_counter() - t0
         return bufs
 
 
@@ -151,6 +173,10 @@ class DistributedTrainer:
                 "cold_fold_update is a single-card option: the data-parallel "
                 "trainer has no gsrc slack region to fold the cold write "
                 "into (the JAX package's DistributedTrainer ignores it)")
+        if _pg is None:
+            refuse_unlabeled_train(graph.y, graph.split_idx["train"])
+        else:
+            refuse_unlabeled_train(_pg.y, _pg.split_idx["train"])
         if not dist.is_initialized():
             raise RuntimeError("DistributedTrainer needs a torch.distributed "
                                "process group (parallel/mesh.py)")
@@ -607,9 +633,12 @@ class DistributedTrainer:
                 acc += torch.stack([ex.num_local, ex.num_cached,
                                     ex.num_remote, ex.num_overflow,
                                     ex.sent_bytes.to(torch.int64)])
-        self.stats.add("feed_starved", feeder.starved_dur)
+        # the JAX package's four host stages (their sum is inside the
+        # region), and the single-card Trainer's feed starvation
+        for k, v in feed.stages(feeder).items():
+            self.stats.add(k, v)
         self.stats.add("cold_serve", cold_serve)
-        self.stats.add("bucket_agree", feed.agree_s)
+        self.stats.add("feed_starved", feeder.starved_dur)
         self.stats.end_epoch()
         st = feed.it.stats
         (local, cached_hits, remote, overflow, sent_bytes, drop_n, drop_e,

@@ -46,6 +46,21 @@ from .state import ReduceLROnPlateau, TrainState, create_train_state
 from .step import eval_step, strip_cold, train_step, write_cold_rows
 
 
+def refuse_unlabeled_train(y, train_idx) -> None:
+    """Raise ``ValueError`` when the train split holds a node labeled < 0
+    (a missing label, as the OGB and SALIENT++ importers write it). The
+    loss would index class -1: the JAX package trains such a node as the
+    last class without a word, and a CUDA gather stops the card on a
+    device-side assert. Refused here, before a batch reaches the card."""
+    idx = np.asarray(train_idx, np.int64)
+    bad = idx[np.asarray(y)[idx] < 0]
+    if bad.size:
+        raise ValueError(
+            f"the train split holds {bad.size} node(s) labeled < 0 (first "
+            f"id {int(bad[0])}): give them a label or drop them from "
+            f"split_idx['train']")
+
+
 def calibrate_spec(native: NativeSampler, seeds_pool: np.ndarray,
                    batch_size: int, fanouts, num_batches: int = 8,
                    safety: float = 1.3, seed: int = 1234,
@@ -123,6 +138,7 @@ class Trainer:
 
     def __init__(self, cfg: RunConfig, graph: GraphData,
                  logger: Optional[RunLogger] = None, device=None):
+        refuse_unlabeled_train(graph.y, graph.split_idx["train"])
         self.cfg = cfg
         self.graph = graph
         self.logger = logger or RunLogger()

@@ -8,7 +8,8 @@ batch is used, and the host buffers go back to the sampler pool only once
 that event has completed (earlier, the sampler could overwrite bytes the
 DMA has not read yet). Device tensors are marked as used by the compute
 stream, so the caching allocator does not hand their memory to the next
-copy while a step still reads it. Feed starvation is counted.
+copy while a step still reads it. Feed starvation and the host time of
+building and queuing the copies (``put_dur``) are counted.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ class DeviceFeeder:
         self._primed = False  # first batch returned (initial fill done)
         self.starved_dur = 0.0
         self.starved_occasions = 0
+        self.put_dur = 0.0  # host s building batches and queuing copies
         # host-side accounting: no device scalar is read in the hot loop
         self.edges_fed = 0
         self.bytes_fed = 0  # H2D bytes (sum of shipped tensor sizes)
@@ -87,7 +89,9 @@ class DeviceFeeder:
                 if self._primed and dt > 1e-4:
                     self.starved_dur += dt
                     self.starved_occasions += 1
+                t0 = time.perf_counter()
                 self._put(bufs)
+                self.put_dur += time.perf_counter() - t0
             except StopIteration:
                 break
         if not self._inflight:

@@ -300,6 +300,7 @@ def trainer_rank(rank: int, init_file: str, out_dir: str) -> None:
             rec["own_cache"] = (None if t.cache is None else
                                 t.cache.vertices.numpy().tolist())
             rec["seconds"] = time.perf_counter() - t0
+            rec["stages"] = t.stats.epoch_region_totals
             if leg == "dryrun_fully_random":
                 emb = layerwise_inference_spmd(t, chunk=t.cfg.inference_chunk)
                 out = {"emb": emb.numpy()}

@@ -65,6 +65,8 @@ def legs(tmp_path_factory):
             jax.tree_util.tree_map(np.asarray, t.state.params)))
     ranks = W.start(W.trainer_rank, (str(d / "rendezvous"), str(d)))
     want = {leg: W.drive_leg(leg, t) for leg, t in jax_trainers.items()}
+    for leg, t in jax_trainers.items():
+        want[leg]["stages"] = t.stats.epoch_region_totals
     W.wait(ranks, "trainer legs")
     out = {}
     for leg in W.TRAINER_LEGS:
@@ -133,6 +135,44 @@ def test_sharded_layerwise_matches_jax(legs):
     agree = (got.argmax(-1) == want.argmax(-1)).mean()
     assert agree > 0.995, agree
     np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("leg", list(W.TRAINER_LEGS))
+def test_performance_breakdown_has_jax_stages(legs, leg):
+    """Every epoch of the port's 2-rank run records the JAX package's four
+    host stages (sample_wait, assemble_h2d, cold_serve, bucket_psum), as
+    JAX's 2-device run of the same leg does, plus the single-card
+    Trainer's feed_starved; the four sum to no more than the epoch's
+    train_epoch region."""
+    got, want = legs[leg]
+    stages = ("sample_wait", "assemble_h2d", "cold_serve", "bucket_psum")
+    assert want["stages"] and all(set(e) == {"train_epoch", *stages}
+                                  for e in want["stages"])
+    for rec in got:
+        assert len(rec["stages"]) == len(want["stages"])
+        for e in rec["stages"]:
+            assert set(e) == {"train_epoch", "feed_starved", *stages}, e
+            assert all(e[k] >= 0 for k in e)
+            assert sum(e[k] for k in stages) <= e["train_epoch"], e
+            if leg not in ("owner_cold_fp8", "dryrun_federated"):
+                assert e["cold_serve"] == 0.0  # no owner-served tier
+    # the owner-served legs spend host time serving cold rows
+    if leg in ("owner_cold_fp8", "dryrun_federated"):
+        assert all(e["cold_serve"] > 0 for r in got for e in r["stages"])
+
+
+def test_dist_trainer_refuses_unlabeled_train_nodes():
+    """The data-parallel trainer refuses a train node labeled < 0 at
+    construction, before the group or a batch is touched."""
+    g = synthetic.planted_partition(name="unl", num_nodes=512,
+                                    num_classes=4, avg_degree=6,
+                                    num_features=8, seed=3)
+    train = np.asarray(g.split_idx["train"])
+    g.y = np.asarray(g.y).copy()
+    g.y[train[3]] = -1
+    with pytest.raises(ValueError, match=f"1 node.*first id {train[3]}"):
+        DistributedTrainer(RunConfig(), g, np.zeros(512, np.int32),
+                           device="cpu")
 
 
 def _batch_pair(cold_cfg):

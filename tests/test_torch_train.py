@@ -119,6 +119,24 @@ def test_trainer_learns_on_planted_graph():
     assert res.final_valid_acc > 0.8  # chance is 0.25
 
 
+def test_trainer_refuses_unlabeled_train_nodes():
+    """A train node labeled -1 trains as the last class in JAX and stops
+    the card on a device-side assert in the port's loss: the Trainer
+    refuses the split at construction, naming the count and first id."""
+    g = synthetic.planted_partition(name="unl", num_nodes=600,
+                                    num_classes=4, avg_degree=6,
+                                    num_features=8, seed=3)
+    train = np.asarray(g.split_idx["train"])
+    g.y = np.asarray(g.y).copy()
+    g.y[train[[5, 9]]] = -1
+    with pytest.raises(ValueError, match=f"2 node.*first id {train[5]}"):
+        Trainer(_tiny_cfg(), g, device="cpu")
+    # an unlabeled node outside the train split is allowed
+    g.y[train[[5, 9]]] = 0
+    g.y[np.asarray(g.split_idx["test"])[0]] = -1
+    Trainer(_tiny_cfg(), g, device="cpu")
+
+
 def test_pipeline_disabled_gives_the_same_losses():
     g = synthetic.planted_partition(name="pipe", num_nodes=800,
                                     num_classes=3, avg_degree=6,
@@ -289,7 +307,8 @@ def test_port_imports_no_jax():
                 "train/dist_inference.py", "data/ogb.py",
                 "data/salient_import.py", "partition/quality_bench.py",
                 "utils/download_datasets.py", "utils/configure_env.py",
-                "utils/exp_launcher.py", "utils/readiness_drill.py"):
+                "utils/exp_launcher.py", "utils/readiness_drill.py",
+                "experiments/fp8_study.py", "experiments/scaling_harness.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
