@@ -101,7 +101,18 @@ them.
    itself with SIGSTOP; rank 0 must end non-zero without finishing epoch
    1, by the heartbeat within its timeout of the crash and within 3× of
    the stop. In the fourth pair rank 0 sleeps 3× the timeout before the
-   barrier while rank 1 waits in it: both must end with 0.
+   barrier while rank 1 waits in it: both must end with 0;
+12. the launchers: (a) the README's 2-rank driver job in gloo on the
+   host's CPU three ways at once, under torchrun's variables, SLURM's
+   alone (``srun``) and Open MPI's alone (``mpirun``), each rank's group
+   joined with a live heartbeat, every results.json equal to torchrun's
+   but the epoch's wall time; (b) the plain command ``python -m
+   salient_plusplus_tpu_torch.driver ... --distribute_data true`` on the
+   100k-node graph with no launcher variables: one process on this
+   one-card host, exit 0, final_valid above chance, and its log's kernel
+   launches (K1, K2 and K3, counted from 0 in that process); (c) where
+   the host has 2 cards, the same command spawning one NCCL rank a card
+   and an ``srun``-emulated NCCL pair.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -109,6 +120,7 @@ kernel summary JSON and the nvidia-smi name/power-limit line.
 
 from __future__ import annotations
 
+import ast
 import glob
 import json
 import os
@@ -1955,6 +1967,45 @@ def phase_dist_two_cards(V=100_000, C=32):
           f"2-rank driver: {r}")
 
 
+def phase_launchers_two_cards(power, V=100_000, C=32):
+    """Phase 12(c), beside phase 9's 2-card legs: where the host has 2
+    cards, the plain command spawns one NCCL rank a card (each rank's log
+    shows K1, K2 and K3), and an ``srun``-emulated NCCL pair of the
+    driver trains the same job."""
+    from salient_plusplus_tpu_torch.parallel.launch import run_ranks
+
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        log(f"  local launch on every card not run: device_count={n_dev}")
+        log(f"  srun-emulated NCCL pair not run: device_count={n_dev}")
+        return
+    with tempfile.TemporaryDirectory() as root:
+        dt, res, launches, job = plain_command(root, V, C)
+        files = sorted(os.listdir(job))
+    log(f"  plain command, {n_dev} cards: {dt:.1f} s; {res[0]}; launches "
+        f"{launches}  [{power}]")
+    check(len(launches) == n_dev and all(
+        min(c.values()) > 0 for c in launches.values()),
+        f"local launch: {n_dev} ranks with every kernel expected: "
+        f"{launches}")
+    check(all(f"rank{r}_output.txt" in files for r in range(1, n_dev)),
+          f"local launch: rank outputs missing: {files}")
+    check(res[0]["final_valid"] > 1.0 / C, f"local launch: {res[0]}")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        run_ranks(["-m", "salient_plusplus_tpu_torch.driver",
+                   f"synth:V={V},C={C},deg=12,F=64", "srun2", "--epochs",
+                   "1", "--distribute_data", "true", "--output_root", root],
+                  2, 600, launcher="slurm")
+        with open(os.path.join(root, "srun2", "results.json")) as f:
+            r = json.load(f)[0]
+        launches = _launches_in(os.path.join(root, "srun2"))
+    log(f"  srun-emulated NCCL pair: {time.perf_counter() - t0:.1f} s; "
+        f"{r}; launches {launches}  [{power}]")
+    check(r["final_valid"] > 1.0 / C and len(launches) == 2,
+          f"srun-emulated NCCL pair: {r} {launches}")
+
+
 def phase_dist(g, dev, power, single, single_lw):
     """Phase 9 in a world-1 NCCL group, joined as a launcher's rank joins
     it (``maybe_initialize_distributed`` from ``env://``), so the rank's
@@ -2099,6 +2150,151 @@ def phase_dist_two_cards_kill():
     rcs, outs, dt = chaos_pair(1, "stop", device="cuda")
     check_chaos("chaos pair, NCCL on 2 cards", 1, "stop", rcs, outs, dt,
                 nvidia_smi())
+
+
+# ---------------------------------------------------------------- phase 12
+# the README's 2-rank data-parallel CPU job
+LAUNCH_ARGV = ["synth:V=4096,C=4,deg=8,F=16", "dp", "--distribute_data",
+               "true", "--computation_mode", "frequency_cache", "--epochs",
+               "1", "--train_batch_size", "64", "--train_fanouts", "4,3",
+               "--batchwise_test_fanouts", "5,5", "--final_test_fanouts",
+               "5,5", "--num_layers", "2", "--hidden_features", "16",
+               "--num_workers", "1"]
+LAUNCH_RANK = (  # a rank: the driver on the CPU, then its group
+    "import sys; import torch.distributed as dist; "
+    "from salient_plusplus_tpu_torch import driver; "
+    "from salient_plusplus_tpu_torch.parallel import mesh; "
+    "driver.main(sys.argv[1:], device='cpu'); "
+    "hb = mesh.current_heartbeat(); "
+    "print('GROUP', dist.get_rank(), dist.get_world_size(), "
+    "dist.get_backend(), hb is not None)")
+
+
+def _but_time(results):
+    return [{k: v for k, v in r.items() if k != "epoch_times"}
+            for r in results]
+
+
+def phase_launchers_emulated(power, timeout=180):
+    """12(a): the README's 2-rank job in gloo on the host's CPU under
+    torchrun's, SLURM's and Open MPI's variables, at once (each alone in
+    its ranks' environment); each rank prints its group, every run ends
+    with 0 and its results.json equals torchrun's but the epoch's wall
+    time."""
+    from salient_plusplus_tpu_torch.parallel.launch import run_ranks
+
+    got = {}
+
+    def run(way, root):
+        t0 = time.perf_counter()
+        rcs, outs, _ = run_ranks(
+            ["-c", LAUNCH_RANK, *LAUNCH_ARGV, "--output_root", root], 2,
+            timeout, check=False, launcher=way)
+        res = None
+        if rcs == [0, 0]:
+            with open(os.path.join(root, "dp", "results.json")) as f:
+                res = json.load(f)
+        got[way] = (rcs, outs, res, time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as root:
+        threads = [threading.Thread(target=run,
+                                    args=(w, os.path.join(root, w)))
+                   for w in ("torchrun", "slurm", "ompi")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    ref = got["torchrun"][2]
+    for way, (rcs, outs, res, dt) in got.items():
+        groups = [ln for o in outs for ln in o.splitlines()
+                  if ln.startswith("GROUP")]
+        log(f"  {way}: return codes {rcs}, {groups}, {dt:.1f} s; "
+            f"{None if res is None else _but_time(res)}  [{power}]")
+        check(rcs == [0, 0], f"{way} ranks failed: {outs[0][-2000:]}"
+                             f"{outs[1][-2000:]}")
+        check(groups == ["GROUP 0 2 gloo True", "GROUP 1 2 gloo True"],
+              f"{way}: the group or the heartbeat is missing: {groups}")
+        check(_but_time(res) == _but_time(ref),
+              f"{way} results differ from torchrun's: {res} {ref}")
+
+
+def _launches_in(job_dir):
+    """Every rank's last kernel_launches line in its driver log:
+    {log file name: {kernel: launches}}."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(job_dir, "*_logs.txt"))):
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith("('kernel_launches'"):
+                    out[os.path.basename(path)] = ast.literal_eval(ln)[1]
+    return out
+
+
+def _plain_env():
+    """This process's environment without any launcher's variable."""
+    from salient_plusplus_tpu_torch.parallel.mesh import LAUNCHER_VARS
+
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    return env
+
+
+def plain_command(root, V=100_000, C=32, timeout=600):
+    """``python -m salient_plusplus_tpu_torch.driver synth:... dp1 --epochs
+    1 --distribute_data true`` with no launcher variables: (seconds, rank
+    0's results, {log: launches}, job dir)."""
+    cmd = [sys.executable, "-m", "salient_plusplus_tpu_torch.driver",
+           f"synth:V={V},C={C},deg=12,F=64", "dp1", "--epochs", "1",
+           "--distribute_data", "true", "--output_root", root]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=_plain_env(), capture_output=True,
+                       text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    check(p.returncode == 0, f"the plain command failed ({p.returncode}): "
+                             f"{p.stdout[-1500:]}{p.stderr[-3000:]}")
+    job = os.path.join(root, "dp1")
+    with open(os.path.join(job, "results.json")) as f:
+        res = json.load(f)
+    return dt, res, _launches_in(job), job
+
+
+def phase_plain_command(power, V=100_000, C=32):
+    """12(b): the plain data-parallel command on this host. With one card
+    it trains on the card in one process (no rank spawned: one log, no
+    -rank names, no rank outputs), exit 0, final_valid above chance, and
+    K1 >= 4, K2 >= 1 and K3 >= 1 launches a train step in its log (the
+    counts start at 0 in that new process)."""
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        log(f"  one-card plain command not run: device_count={n_dev} (12c "
+            f"runs it as {n_dev} ranks)")
+        return
+    with tempfile.TemporaryDirectory() as root:
+        dt, res, launches, job = plain_command(root, V, C)
+        files = sorted(os.listdir(job))
+    r = res[0]
+    steps = train_steps(V)
+    log(f"  plain command, one card: {dt:.1f} s; losses={r['losses']} "
+        f"final_valid={r['final_valid']:.4f} epoch_s={r['epoch_times']}; "
+        f"job files {files}; launches {launches}  [{power}]")
+    check(r["final_valid"] > 1.0 / C and all(np.isfinite(r["losses"])),
+          f"plain command: {r}")
+    check(len(launches) == 1 and "-rank" not in next(iter(launches)) and
+          not any(f.startswith("rank") for f in files),
+          f"the plain command spawned ranks on one card: {files}")
+    _at_least(next(iter(launches.values())),
+              {"sorted_segment_sum": 4 * steps,
+               "fused_gather_segment_sum": steps, "gather_rows": steps},
+              f"plain command, {steps} train steps")
+
+
+def phase_launchers(power):
+    """Phase 12: the launchers."""
+    phase_launchers_emulated(power)
+    phase_plain_command(power)
+    phase_launchers_two_cards(power)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2296,6 +2492,10 @@ def main() -> int:
     t = time.perf_counter()
     phase_chaos(power)
     log(f"phase 11 rank-death fail-fast: {time.perf_counter() - t:.1f} s")
+    # phase 12: the launchers (srun / mpirun emulated, the plain command)
+    t = time.perf_counter()
+    phase_launchers(power)
+    log(f"phase 12 launchers: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

@@ -22,17 +22,22 @@ job directory; ``RESUME=1`` restarts a trial from its latest one, and
 ``SIM_PARTS`` (default 4) parts and sweeps the cache schemes'
 communication volume on the host, with no model and no device.
 
-Data-parallel training: launched as several processes (``torchrun
---nproc_per_node N -m salient_plusplus_tpu_torch.driver ...``), the
-driver joins the process group first (NCCL on the card, gloo with
-``device="cpu"``); with ``--distribute_data true`` and more than one rank
-each rank trains its partition of the features (``DistributedTrainer``),
-and ``--computation_mode frequency_cache`` adds the VIP cache. A
-partitioned dataset must have one part a rank and is loaded one shard a
-rank; any other graph is partitioned into one part a rank on every rank
-alike. Rank 0 writes the job's files. With one process the driver trains
-on one card, as the JAX driver does with one device; a partitioned
-dataset is then trained from all its shards.
+Data-parallel training (``--distribute_data true``): one process a GPU,
+each training its partition of the features (``DistributedTrainer``);
+``--computation_mode frequency_cache`` adds the VIP cache. The plain
+command on a host with N > 1 cards starts N ranks itself
+(``parallel/launch.py::launch_local``, one a card, as ``torchrun
+--nproc_per_node N`` would) and returns rank 0's results, as the JAX
+driver builds its mesh over every local device; with one card it trains
+on that card, as the JAX driver does with one device. Started by a
+launcher (``torchrun``, ``srun``, Open MPI's ``mpirun``), the driver
+joins the process group first (``parallel/mesh.py``: NCCL on the card,
+gloo with ``device="cpu"``; the launcher's variables by JAX's rules).
+``--do_test_run`` and ``communication_simulation`` run in one process,
+as in JAX. A partitioned dataset must have one part a rank and is loaded
+one shard a rank; any other graph is partitioned into one part a rank on
+every rank alike. Rank 0 writes the job's files. A single process trains
+a partitioned dataset from all its shards.
 """
 
 from __future__ import annotations
@@ -183,6 +188,7 @@ def run_computation(cfg, graph, job_dir: str, logger, device=None):
     with ``--distribute_data`` and more than one rank, else on one card.
     The data-parallel trainer is built once for all trials (partitioning,
     calibration and the cache do not depend on the trial)."""
+    from .ops import launch_counts
     from .train.loop import Trainer
 
     distributed = cfg.distribute_data and _world() > 1
@@ -200,6 +206,7 @@ def run_computation(cfg, graph, job_dir: str, logger, device=None):
             trainer = Trainer(cfg, graph, logger=logger, device=device)
         res = trainer.run_trial(trial, checkpoint_dir=job_dir)
         logger.log("performance_breakdown", trainer.stats.summary())
+        logger.log("kernel_launches", launch_counts())   # this process's
         results.append({"trial": trial, "best_epoch": res.best_epoch,
                         "best_valid": res.best_valid_acc,
                         "final_valid": res.final_valid_acc,
@@ -233,24 +240,18 @@ def do_test_run(cfg, graph, job_dir: str, checkpoint_epochs, logger,
     return out
 
 
-def main(argv=None, device=None):
-    """Run the CLI; ``device=None`` means CUDA. The simulation mode runs
-    on the host and touches no device. Under a multi-process launcher the
-    process group is joined before anything else."""
-    from .parallel.mesh import maybe_initialize_distributed
+USAGE = ("usage: python -m salient_plusplus_tpu_torch.driver "
+         "<dataset> <job_name> [--flags] [--do_test_run epoch0,epoch1,...]")
 
-    maybe_initialize_distributed(device)
+
+def parse_argv(argv):
+    """(dataset name, job name, the ``--do_test_run`` epochs or None,
+    RunConfig) of the CLI's arguments; malformed ones exit with 2."""
     from .config import RunConfig
-    from .utils.device import resolve_device
-    from .utils.logging import RunLogger
 
-    usage = ("usage: python -m salient_plusplus_tpu_torch.driver "
-             "<dataset> <job_name> [--flags] "
-             "[--do_test_run epoch0,epoch1,...]")
-    argv = argv if argv is not None else sys.argv[1:]
     if argv and not argv[0].startswith("-"):
         if len(argv) < 2 or argv[1].startswith("-"):
-            print(usage, file=sys.stderr)
+            print(USAGE, file=sys.stderr)
             sys.exit(2)
         dataset_name, job_name, rest = argv[0], argv[1], argv[2:]
     else:
@@ -259,14 +260,39 @@ def main(argv=None, device=None):
     if "--do_test_run" in rest:
         i = rest.index("--do_test_run")
         if i + 1 >= len(rest):
-            print(usage, file=sys.stderr)
+            print(USAGE, file=sys.stderr)
             sys.exit(2)
         test_run_epochs = [int(e) for e in rest[i + 1].split(",")]
         rest = rest[:i] + rest[i + 2:]
     cfg = RunConfig.from_args(rest)
     cfg = cfg.replace(dataset_name=dataset_name, job_name=job_name)
+    return dataset_name, job_name, test_run_epochs, cfg
+
+
+def main(argv=None, device=None):
+    """Run the CLI; ``device=None`` means CUDA. The simulation mode runs
+    on the host and touches no device. A data-parallel training run in a
+    plain process on a host with several cards starts one rank a card and
+    returns rank 0's results; under a multi-process launcher the process
+    group is joined before anything else is done."""
+    import torch
+
+    from .parallel.launch import launch_local, local_launch_ranks
+    from .parallel.mesh import maybe_initialize_distributed
+    from .utils.device import resolve_device
+    from .utils.logging import RunLogger
+
+    argv = list(argv if argv is not None else sys.argv[1:])
+    dataset_name, job_name, test_run_epochs, cfg = parse_argv(argv)
     simulate = (test_run_epochs is None
                 and cfg.execution_mode == "communication_simulation")
+    training = test_run_epochs is None and not simulate
+    nprocs = local_launch_ranks(
+        cfg.distribute_data, training,
+        torch.device("cuda" if device is None else device))
+    if nprocs > 1:
+        return launch_local(argv, nprocs)
+    maybe_initialize_distributed(device)
     if not simulate:
         device = resolve_device(device)
 
@@ -305,4 +331,10 @@ def main(argv=None, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    from .parallel.launch import RankFailed
+
+    try:
+        main()
+    except RankFailed as e:
+        print(f"driver: {e}", file=sys.stderr)
+        sys.exit(e.exit_code)

@@ -143,7 +143,7 @@ def run_study(out: str = DEFAULT_OUT, world: int = WORLD,
     ``out``: the JAX study's keys (the four curves, the gaps, the
     verdict), then each run's losses, exchange sums and seconds, the
     settings and the wall time."""
-    from . import run_ranks
+    from ..parallel.launch import run_ranks
 
     t0 = time.perf_counter()
     tmp = os.path.abspath(out) + ".ranks.tmp"

@@ -106,7 +106,7 @@ def _rank_main(out_path: str, nodes: int, epochs: int) -> None:
 
 def _leg(world: int, out: str, nodes: int, epochs: int,
          timeout_s: float) -> dict:
-    from . import run_ranks
+    from ..parallel.launch import run_ranks
 
     tmp = os.path.abspath(out) + f".w{world}.tmp"
     run_ranks(["-m", "salient_plusplus_tpu_torch.experiments."

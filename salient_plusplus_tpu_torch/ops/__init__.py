@@ -14,4 +14,13 @@ __all__ = [
     "gather_rows", "masked_segment_mean", "masked_segment_sum",
     "segment_degrees_sorted", "valid_mask",
     "sorted_segment_sum", "sorted_segment_sum_mxu", "spmm_agg",
+    "launch_counts",
 ]
+
+
+def launch_counts() -> dict:
+    """Each CUDA kernel's launches so far in this process, by wrapper
+    (K1, K2, K3); the plain versions that run on the CPU count none."""
+    return {"sorted_segment_sum": sorted_segment_sum_mxu.launches,
+            "fused_gather_segment_sum": fused_gather_segment_sum.launches,
+            "gather_rows": pallas_gather_rows.launches}

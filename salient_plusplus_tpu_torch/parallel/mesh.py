@@ -19,6 +19,18 @@ exception (it writes ``dead``), or a store that is gone, ends the
 process. It checks liveness, not progress: a rank that waits at
 a barrier while rank 0 writes a checkpoint keeps beating, which a short
 collective timeout would not allow.
+
+Launchers. ``jax.distributed.initialize()`` with no arguments takes its
+rendezvous from the launcher: Open MPI's ``mpirun`` first, then SLURM's
+``srun`` (JAX 0.9.0, ``jax/_src/clusters``). :func:`launcher_env` is the
+port's copy of those rules: it turns either launcher's variables into
+torchrun's (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``), which ``init_process_group("env://")`` reads. Rank 0
+hosts the group's store on ``MASTER_ADDR``, the first host of the step's
+node list or the ``mpirun`` host: SLURM's block distribution puts
+``SLURM_PROCID`` 0 on the first node, and the ``mpirun`` host is rank 0's
+in the common case. JAX relies on the same. Open MPI 5 (no
+``orte_hnp_uri``) and MPICH's hydra are joined by neither package.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
+import re
 import sys
 import threading
 import time
@@ -54,6 +67,111 @@ def multiprocess_intended(env) -> bool:
         except ValueError:
             pass
     return False
+
+
+TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+_SLURM_VARS = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+               "SLURM_PROCID", "SLURM_LOCALID")
+_OMPI_URI = "OMPI_MCA_orte_hnp_uri"   # set by mpirun / mpiexec before 5.0
+_OMPI_VARS = ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE",
+              "OMPI_COMM_WORLD_LOCAL_RANK")
+LAUNCHER_PORT_BASE = 65536 - 4096   # JAX's ephemeral range [61440, 65535]
+# every variable of a launcher that launcher_env or multiprocess_intended
+# reads
+LAUNCHER_VARS = (TORCHRUN_VARS + ("LOCAL_RANK",) + _SLURM_VARS +
+                 ("SLURM_STEP_NUM_TASKS", _OMPI_URI) + _OMPI_VARS +
+                 ("PMI_SIZE",))
+LAUNCHERS = ("torchrun (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE), "
+             "srun (" + ", ".join(_SLURM_VARS) + ") or Open MPI's mpirun "
+             "before 5.0 (" + ", ".join((_OMPI_URI,) + _OMPI_VARS) + ")")
+
+
+def slurm_first_host(node_list: str) -> str:
+    """The first host of a SLURM node list: ``n001`` of ``n001``,
+    ``n001,h2``, ``n[001-015],h2`` or ``n[001,007-015],h2`` (JAX's
+    ``SlurmCluster`` parse)."""
+    cut = next((i for i, ch in enumerate(node_list) if ch in ",["),
+               len(node_list))
+    if cut == len(node_list) or node_list[cut] == ",":
+        return node_list[:cut]
+    suffix = node_list[cut + 1:]
+    end = next((i for i, ch in enumerate(suffix) if ch in ",-]"), None)
+    return node_list[:cut] + suffix[:end]
+
+
+def ompi_launcher_host(uri: str) -> str:
+    """The ``mpirun`` host's first address in ``OMPI_MCA_orte_hnp_uri``:
+    ``10.96.0.1`` of ``1531576320.0;tcp://10.96.0.1,10.148.0.1:34911``,
+    ``fe80::b9b`` (no brackets) of ``...;tcp6://[fe80::b9b,...]:43370``
+    (JAX's ``OmpiCluster`` parse)."""
+    m = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if m is None:
+        raise RuntimeError(f"no launcher address in {_OMPI_URI}={uri!r}")
+    return next(g for g in m.groups() if g is not None)
+
+
+def _required(env, names, launcher: str) -> list:
+    """The values of ``names`` in ``env``; one unset raises."""
+    missing = [v for v in names if v not in env]
+    if missing:
+        raise ValueError(f"{launcher} is incomplete: {', '.join(missing)} "
+                         f"not set; the launchers joined are {LAUNCHERS}")
+    return [env[v] for v in names]
+
+
+def launcher_env(env) -> Optional[dict]:
+    """The torchrun variables (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``) of the launcher ``env`` names, or None
+    when it names none.
+
+    torchrun's own set wins when ``RANK`` or ``WORLD_SIZE`` is set, and is
+    then taken whole (``LOCAL_RANK`` 0 when unset); an incomplete one
+    raises. Otherwise Open MPI (``OMPI_MCA_orte_hnp_uri`` set), then SLURM
+    (every one of ``SLURM_JOB_ID``, ``SLURM_STEP_NODELIST``,
+    ``SLURM_NTASKS``, ``SLURM_PROCID``, ``SLURM_LOCALID`` set), by JAX
+    0.9.0's rules: the host is the first of the step's node list, or the
+    ``mpirun`` host's first address; the port is ``SLURM_JOB_ID % 4096 +
+    61440``, or ``(jobid // 4096) % 4096 + 61440`` of the URI's job id. A
+    ``MASTER_ADDR`` or ``MASTER_PORT`` the user set wins over the
+    launcher's host or port (``MASTER_PORT`` as JAX's
+    ``JAX_COORDINATOR_PORT``)."""
+    if "RANK" in env or "WORLD_SIZE" in env:
+        out = dict(zip(TORCHRUN_VARS,
+                       _required(env, TORCHRUN_VARS, "torchrun's set")))
+        out["LOCAL_RANK"] = env.get("LOCAL_RANK", "0")
+        return out
+    if _OMPI_URI in env:
+        uri = env[_OMPI_URI]
+        rank, world, local = _required(env, _OMPI_VARS, "Open MPI's set")
+        host = env.get("MASTER_ADDR") or ompi_launcher_host(uri)
+        port = env.get("MASTER_PORT") or str(
+            (int(uri.split(".", 1)[0]) // 4096) % 4096 + LAUNCHER_PORT_BASE)
+    elif all(v in env for v in _SLURM_VARS):
+        rank, world, local = (env[v] for v in (
+            "SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID"))
+        host = env.get("MASTER_ADDR") or slurm_first_host(
+            env["SLURM_STEP_NODELIST"])
+        port = env.get("MASTER_PORT") or str(
+            int(env["SLURM_JOB_ID"]) % 4096 + LAUNCHER_PORT_BASE)
+    else:
+        return None
+    return {"MASTER_ADDR": host, "MASTER_PORT": port, "RANK": str(int(rank)),
+            "WORLD_SIZE": str(int(world)), "LOCAL_RANK": str(int(local))}
+
+
+def card_index(env) -> int:
+    """The card of this rank: its ``LOCAL_RANK``, as JAX's
+    ``local_device_ids=[local id]``. A local rank without a card raises
+    (never wrapped round onto a card another rank holds)."""
+    local = int(env.get("LOCAL_RANK", "0"))
+    count = torch.cuda.device_count()
+    if not 0 <= local < count:
+        raise RuntimeError(
+            f"LOCAL_RANK={local} has no card: torch.cuda.device_count() is "
+            f"{count} (CUDA_VISIBLE_DEVICES="
+            f"{env.get('CUDA_VISIBLE_DEVICES', '<unset>')}); start one "
+            f"process a card, each seeing every card of its host")
+    return local
 
 
 def _base_store(store):
@@ -322,21 +440,32 @@ atexit.register(stop_heartbeat)
 
 def maybe_initialize_distributed(
         device=None, heartbeat_timeout_s: float = HEARTBEAT_TIMEOUT_S) -> bool:
-    """Join the default process group from the environment (``env://``:
-    ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``), with NCCL
-    for CUDA (``device=None``; the rank's card is ``LOCAL_RANK``) and gloo
-    for ``device="cpu"``, then start the rank's heartbeat
-    (:class:`Heartbeat`; ``heartbeat_timeout_s`` as
+    """Join the default process group from the launcher's variables
+    (:func:`launcher_env`: torchrun's, ``srun``'s or ``mpirun``'s, written
+    into ``os.environ`` as torchrun's, so ``env://``, the heartbeat's store
+    and every later reader of ``LOCAL_RANK`` see the same), with NCCL for
+    CUDA (``device=None``; the rank's card is its local rank,
+    :func:`card_index`) and gloo for ``device="cpu"``, and start the
+    rank's heartbeat (:class:`Heartbeat`; ``heartbeat_timeout_s`` as
     ``jax.distributed.initialize``'s ``heartbeat_timeout_seconds``).
     Idempotent; a plain single-process run is left alone. Returns whether
     a group exists.
 
     Fail-fast: when several processes are intended
-    (:func:`multiprocess_intended`) and the bootstrap fails, it raises
-    instead of carrying on as one process; once the group runs, a rank
-    whose peer falls silent for ``heartbeat_timeout_s`` ends. The group
-    has no short collective timeout: long legitimate waits (a checkpoint
-    written by rank 0, the cache build, the layerwise test) stay allowed.
+    (:func:`multiprocess_intended`) and no launcher names the rendezvous
+    (``srun`` in a batch step with no step node list, MPICH's hydra, Open
+    MPI 5), or the bootstrap fails, it raises instead of carrying on as
+    one process, as ``jax.distributed.initialize()`` does. A rank whose
+    local rank has no card raises once its heartbeat runs, so its peers
+    read ``dead`` and end too. Once the group runs, a rank whose peer
+    falls silent for ``heartbeat_timeout_s`` ends. The group has no short
+    collective timeout: long legitimate waits (a checkpoint written by
+    rank 0, the cache build, the layerwise test) stay allowed.
+
+    The heartbeat's keys carry torchrun's ``TORCHELASTIC_RESTART_COUNT``
+    (0 under ``srun`` and ``mpirun``); a requeued ``srun`` step or a new
+    ``mpirun`` job cannot read the keys of the run before it, because each
+    run's rank 0 hosts a new store.
     """
     from ..utils.device import resolve_device
 
@@ -344,10 +473,21 @@ def maybe_initialize_distributed(
         return True
     if not multiprocess_intended(os.environ):
         return False
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    filled = launcher_env(os.environ)
+    if filled is None:
+        said = {v: os.environ[v] for v in (
+            "SLURM_NTASKS", "SLURM_STEP_NUM_TASKS", "OMPI_COMM_WORLD_SIZE",
+            "PMI_SIZE") if v in os.environ}
+        raise RuntimeError(
+            f"the environment says this process is one of several ({said}) "
+            f"but names no rendezvous; the launchers joined are "
+            f"{LAUNCHERS} (neither this port nor JAX 0.9.0 joins Open MPI 5 "
+            f"or MPICH)")
+    os.environ.update(filled)
+    dev = resolve_device(device)   # CUDA without a card raises here
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method="env://")
     start_heartbeat(heartbeat_timeout_s)
+    if dev.type == "cuda":
+        torch.cuda.set_device(card_index(os.environ))
     return True

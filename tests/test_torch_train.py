@@ -308,7 +308,8 @@ def test_port_imports_no_jax():
                 "data/salient_import.py", "partition/quality_bench.py",
                 "utils/download_datasets.py", "utils/configure_env.py",
                 "utils/exp_launcher.py", "utils/readiness_drill.py",
-                "experiments/fp8_study.py", "experiments/scaling_harness.py"):
+                "experiments/fp8_study.py", "experiments/scaling_harness.py",
+                "parallel/launch.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
