@@ -112,7 +112,18 @@ them.
    one-card host, exit 0, final_valid above chance, and its log's kernel
    launches (K1, K2 and K3, counted from 0 in that process); (c) where
    the host has 2 cards, the same command spawning one NCCL rank a card
-   and an ``srun``-emulated NCCL pair.
+   and an ``srun``-emulated NCCL pair;
+13. the throughput bench (``salient_plusplus_tpu_torch/bench.py``, the
+   counterpart of the JAX package's ``bench.py``): its gather probe in
+   this process on phase 5's feature table, read PROBE_READINGS times
+   and their spread logged (K3 launched exactly the probes' chain
+   lengths, each slope at or above the HBM bound of its bytes), then ``python -m salient_plusplus_tpu_torch.bench`` twice in a
+   child, SAGE all-resident and at ``BENCH_HBM_FRACTION=0.5`` with
+   ``BENCH_COLD_CACHE=auto`` (20 warm-up steps, 3 windows of 40): exit 0, edges/s > 0, 3 windows, a measured probe, roofline
+   share in (0, 1.05], a microstep time, no gsrc fallback, and the child's
+   K1, K2 and K3 launches (from 0 in that process) exactly 4, 1 and 1 a
+   train step plus the probes' K3; each line is logged beside phase 5's
+   (and phase 7's gsrc-cold) step time and edges/s.
 
 The last stdout line is {"ok": true, "device": {...}}; before it, the
 kernel summary JSON and the nvidia-smi name/power-limit line.
@@ -2372,6 +2383,118 @@ def check_drill(rep, nodes, power):
               f"drill, {steps} train steps + {chunks} chunks x 3 layers")
 
 
+# ---------------------------------------------------------------- phase 13
+BENCH_RUN_ENV = {"BENCH_WARMUP": "20", "BENCH_STEPS": "40",
+                 "BENCH_WINDOWS": "3"}
+BENCH_RUNS = [("SAGE all-resident", {}),
+              ("SAGE hbm_fraction 0.5, cold cache auto",
+               {"BENCH_HBM_FRACTION": "0.5", "BENCH_COLD_CACHE": "auto"})]
+
+
+PROBE_READINGS = 5
+
+
+def phase_gather_probe(table, power):
+    """The bench's gather probe in this process on ``table``, read
+    PROBE_READINGS times: K3 launched exactly ``PROBE_LAUNCHES`` times a
+    reading (K1, K2 never), each slope measured and at or above the HBM
+    bound of the probe's bytes (each row read and written once); the
+    readings' spread is logged."""
+    from salient_plusplus_tpu_torch import bench
+
+    check("BENCH_GATHER_NS" not in os.environ, "BENCH_GATHER_NS is set")
+    t0 = time.perf_counter()
+    readings, counts = driven(
+        "the bench's gather probe",
+        lambda: [bench._measure_gather_ns(table)
+                 for _ in range(PROBE_READINGS)])
+    ns = sorted(v for v, _ in readings)
+    floor_ns = 2 * table.shape[1] * table.element_size() / HBM_BYTES_PER_S * 1e9
+    log(f"  gather probe on the {tuple(table.shape)} {table.dtype} table, "
+        f"{PROBE_READINGS} readings: {[round(v, 4) for v in ns]} ns/row "
+        f"(min {ns[0]:.4f}, median {ns[len(ns) // 2]:.4f}, max "
+        f"{ns[-1]:.4f}, max/min {ns[-1] / ns[0]:.3f}), HBM bound "
+        f"{floor_ns:.4f} ns/row, share at the min {floor_ns / ns[0]:.3f}; "
+        f"{time.perf_counter() - t0:.2f} s  [{power}]")
+    check(all(s == "measured" for _, s in readings) and ns[0] >= floor_ns,
+          f"gather probe {readings} ns/row below its bound {floor_ns}")
+    want = PROBE_READINGS * bench.PROBE_LAUNCHES
+    check(counts == {"sorted_segment_sum": 0, "fused_gather_segment_sum": 0,
+                     "gather_rows": want},
+          f"gather probe launches {counts}: K3 {want} expected")
+    return ns[0]
+
+
+def bench_run(label, over, power, timeout=420):
+    """``python -m salient_plusplus_tpu_torch.bench`` in a child with
+    BENCH_RUN_ENV and ``over`` (no other BENCH_* variable): (its JSON
+    line, {kernel: launches}, train steps, probe launches, seconds)."""
+    env = {k: v for k, v in _plain_env().items()
+           if not k.startswith("BENCH_")}
+    env.update(BENCH_RUN_ENV, **over)
+    torch.cuda.empty_cache()  # give the cached blocks back for the child
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "salient_plusplus_tpu_torch.bench"], env=env,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    log("\n".join("  | " + ln for ln in p.stderr.splitlines()
+                  if ln.startswith(("bench:", "windows(", "h2d_preflight"))))
+    check(p.returncode == 0, f"bench ({label}) failed ({p.returncode}): "
+                             f"{p.stdout[-1500:]}{p.stderr[-3000:]}")
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    m = re.search(r"^bench: kernel launches (\{.*\}) in (\d+) train steps "
+                  r"and (\d+) probe gathers$", p.stderr, re.M)
+    check(m is not None, f"bench ({label}): no kernel launches line")
+    return line, json.loads(m.group(1)), int(m.group(2)), int(m.group(3)), dt
+
+
+def phase_bench_runs(power, single, cold):
+    """The bench's two runs (BENCH_RUNS), each checked, each logged beside
+    phase 5's figures ``single`` (and the 0.5 run beside phase 7's
+    gsrc-cold ``cold``) for the same shape; the comparison is logged, not
+    gated on."""
+    K1, K2, K3 = "sorted_segment_sum", "fused_gather_segment_sum", "gather_rows"
+    for (label, over), ref in zip(BENCH_RUNS, (single, cold)):
+        line, launches, steps, probes, dt = bench_run(label, over, power)
+        win = line["windows_edges_per_s"]
+        # a window's step time: batches/s = H2D MB/s / MB a batch
+        win_ms = [line["bytes_per_batch"] / (r * 1e6) * 1e3
+                  for r in line["h2d_required_mb_per_s"]]
+        log(f"  bench {label}: {dt:.1f} s; value {line['value']} e/s "
+            f"(windows {win}, median {line['window_median']}; window step "
+            f"ms {[round(x, 3) for x in win_ms]}), microstep "
+            f"{line['microstep_ms']} ms ({line['microstep_edges_per_s']} "
+            f"e/s), gather {line['gather_ns_per_row']} ns/row "
+            f"({line['gather_ns_source']}; pre {line['gather_ns_pre']}, post "
+            f"{line['gather_ns_post']}), rows/step "
+            f"{line['gather_rows_per_step']}, roofline "
+            f"{line['roofline_edges_per_s']} e/s, roofline_frac "
+            f"{line['roofline_frac']}, chip_state {line['chip_state']} "
+            f"({line['chip_state_note']}), h2d burst "
+            f"{line['h2d_burst_mb_per_s']} MB/s, needed "
+            f"{line['h2d_required_mb_per_s']}  [{power}]")
+        log(f"  bench {label} line: {json.dumps(line)}")
+        if ref is not None:
+            log(f"  bench {label} vs chip_smoke's own bench (same shape): "
+                f"window median {line['window_median']:.4g} vs "
+                f"{ref['edges_per_s']:.4g} e/s; microstep "
+                f"{line['microstep_ms']} vs {ref['step_ms']:.3f} ms a step "
+                f"(feed included there)  [{power}]")
+        log(f"  launches in the bench child: {launches} in {steps} train "
+            f"steps and {probes} probe gathers")
+        check(line["value"] > 0 and len(win) == 3
+              and line["gather_ns_source"] == "measured"
+              and 0 < line["roofline_frac"] <= 1.05
+              and line["microstep_ms"] > 0
+              and line["gsrc_fallback_windows"] is None,
+              f"bench {label}: {line}")
+        check(launches == {K1: 4 * steps, K2: steps, K3: steps + probes},
+              f"bench {label}: launches {launches} in {steps} steps and "
+              f"{probes} probe gathers; K1 4, K2 1, K3 1 a step expected")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2464,8 +2587,9 @@ def main() -> int:
     # phase 7: the host cold tier (hbm_fraction 0.5)
     t = time.perf_counter()
     phase_cold_overlay(trainer, dev, power)
-    phase_cold_bench(trainer, dev, power, full_res)
+    cold_res = phase_cold_bench(trainer, dev, power, full_res)
     bench_graph, bench_spec = trainer.graph, trainer.train_spec
+    bench_table = trainer.features  # phase 13's gather probe
     del trainer
     phase_cold_drivers(dev)
     log(f"phase 7 cold tier: {time.perf_counter() - t:.1f} s")
@@ -2496,6 +2620,12 @@ def main() -> int:
     t = time.perf_counter()
     phase_launchers(power)
     log(f"phase 12 launchers: {time.perf_counter() - t:.1f} s")
+    # phase 13: the throughput bench, its probe here and its CLI twice
+    t = time.perf_counter()
+    phase_gather_probe(bench_table, power)
+    del bench_table
+    phase_bench_runs(power, full_res, cold_res["gsrc cold"])
+    log(f"phase 13 throughput bench: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     # per kernel: its main-path launches (slice 2's driver run) and its
     # times at one train step's shapes (K1: its 4 calls summed)

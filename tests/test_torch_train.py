@@ -309,7 +309,7 @@ def test_port_imports_no_jax():
                 "utils/download_datasets.py", "utils/configure_env.py",
                 "utils/exp_launcher.py", "utils/readiness_drill.py",
                 "experiments/fp8_study.py", "experiments/scaling_harness.py",
-                "parallel/launch.py"):
+                "parallel/launch.py", "bench.py"):
         assert os.path.join("salient_plusplus_tpu_torch", new) in rel
     for path in files:
         for mod in _imports(path):
