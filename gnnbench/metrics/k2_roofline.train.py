@@ -1,0 +1,18 @@
+"""k2_roofline.train: K2 fused gather + segment sum
+(``csrc/fused_gather_segment_sum.cu``): its share of its roofline over
+the profiled window, in %: the least time its calls could take (bytes at
+3.35 TB/s or float32 adds at 67 TFLOP/s, whichever is longer;
+``arith``), over the profiler's time for its kernels. The kernels are
+named by ``KERNELS``; a ``combine_pass`` launch counts with the
+``slice_pass`` before it. Moves ``train_edges_per_s``.
+"""
+
+from gnnbench.readers import roofline
+
+PHASE = "train"
+FAMILY = "k2"
+KERNELS = r"slice_pass<[^>]*,\s*true>"
+
+
+def read(r):
+    return roofline(r, PHASE, FAMILY)
