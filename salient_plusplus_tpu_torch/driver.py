@@ -205,7 +205,8 @@ def run_computation(cfg, graph, job_dir: str, logger, device=None):
         else:
             trainer = Trainer(cfg, graph, logger=logger, device=device)
         res = trainer.run_trial(trial, checkpoint_dir=job_dir)
-        logger.log("performance_breakdown", trainer.stats.summary())
+        logger.log("performance_breakdown", trainer.stats.summary(),
+                   *(() if distributed else ("build_s", trainer.build_s)))
         logger.log("kernel_launches", launch_counts())   # this process's
         results.append({"trial": trial, "best_epoch": res.best_epoch,
                         "best_valid": res.best_valid_acc,

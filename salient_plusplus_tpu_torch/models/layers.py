@@ -27,6 +27,7 @@ from ..ops.gat_agg import (gat_attention_agg, gat_attention_agg_autodiff,
 from ..ops.segment import gather_rows, masked_segment_sum, valid_mask
 from ..ops.sorted_segment import spmm_agg
 from ..sampling.batch import EdgeBlock
+from ..utils.timing import span
 
 
 def _agg(x: torch.Tensor, edge: EdgeBlock, out_cap: int, mean: bool):
@@ -119,7 +120,8 @@ class GATConv(nn.Module):
     masked-gather backward) and the self term; autograd does the rest.
     With ``SPTPU_GAT_CUSTOM_VJP=1`` and a hop that carries its src-sorted
     mirror, the block with the hand-derived backward (``gat_attention_agg``)
-    runs instead, as in the JAX package."""
+    runs instead, as in the JAX package. Under a profiler either block is
+    the span ``gat.attention``; the projections stay outside it."""
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  negative_slope: float = 0.2,
@@ -151,14 +153,16 @@ class GATConv(nn.Module):
         alpha_src = (xs * self.att_src.to(self.dtype)).sum(-1)   # [N_in, H]
         alpha_dst = (xt * self.att_dst.to(self.dtype)).sum(-1)   # [T, H]
         ns = self.negative_slope
-        if gat_custom_agg_enabled() and edge.msrc is not None:
-            out = gat_attention_agg(
-                out_cap, ns, xs, xt, alpha_src.float(), alpha_dst.float(),
-                edge.src, edge.dst, edge.count, edge.msrc, edge.mdst)
-        else:
-            out = gat_attention_agg_autodiff(
-                out_cap, ns, xs, xt, alpha_src, alpha_dst, edge.src,
-                edge.dst, edge.count)
+        with span("gat.attention"):
+            if gat_custom_agg_enabled() and edge.msrc is not None:
+                out = gat_attention_agg(
+                    out_cap, ns, xs, xt, alpha_src.float(),
+                    alpha_dst.float(), edge.src, edge.dst, edge.count,
+                    edge.msrc, edge.mdst)
+            else:
+                out = gat_attention_agg_autodiff(
+                    out_cap, ns, xs, xt, alpha_src, alpha_dst, edge.src,
+                    edge.dst, edge.count)
         return out.reshape(-1, H * C).to(self.dtype)
 
 

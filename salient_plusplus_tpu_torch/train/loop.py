@@ -38,7 +38,7 @@ from ..sampling.shufflers import Shuffler
 from ..utils.data_collector import DataCollector
 from ..utils.device import resolve_device, synchronize
 from ..utils.logging import RunLogger
-from ..utils.timing import RuntimeStats
+from ..utils.timing import RuntimeStats, Timer, span
 from . import checkpoint as ckpt
 from .cold_policy import measure_h2d_credit, plan_cold_cache
 from .pipeline import DeviceFeeder
@@ -134,7 +134,13 @@ class TrialResult:
 
 class Trainer:
     """Single-card trainer over one GraphData. ``device=None`` means CUDA;
-    the tests pass ``device="cpu"``."""
+    the tests pass ``device="cpu"``.
+
+    ``build_s`` holds the host seconds of the trainer's set-up by part:
+    ``calibrate`` (the train buckets, and each eval bucket and cold cap
+    calibrated later), ``table`` (the features padded, cast to bf16 and
+    put on the device, and each growth of its slack), ``sampler`` (the
+    train ``FastSampler``) and ``model`` (each ``reset``)."""
 
     def __init__(self, cfg: RunConfig, graph: GraphData,
                  logger: Optional[RunLogger] = None, device=None):
@@ -143,6 +149,8 @@ class Trainer:
         self.graph = graph
         self.logger = logger or RunLogger()
         self.stats = RuntimeStats()
+        self.build_s: Dict[str, float] = dict.fromkeys(
+            ("calibrate", "table", "sampler", "model"), 0.0)
         self.device = resolve_device(device)
         self.collector = DataCollector(cfg.output_root, rank=0,
                                        enabled=cfg.collect_data)
@@ -150,20 +158,23 @@ class Trainer:
         self.native = NativeSampler(np.asarray(graph.rowptr, np.int64),
                                     np.asarray(graph.col, np.int32))
         train_idx = graph.split_idx["train"]
-        if cfg.spec_buckets > 1:
-            self.train_spec, self.train_tight = calibrate_spec(
-                self.native, train_idx, cfg.train_batch_size,
-                cfg.train_fanouts, cfg.calibration_batches, cfg.spec_safety,
-                cfg.seed, worst_case_probe=cfg.calibrate_worst_case,
-                tight_quantile=cfg.tight_quantile)
-        else:
-            self.train_spec = calibrate_spec(
-                self.native, train_idx, cfg.train_batch_size,
-                cfg.train_fanouts, cfg.calibration_batches, cfg.spec_safety,
-                cfg.seed, worst_case_probe=cfg.calibrate_worst_case)
-            self.train_tight = None
-        self.train_spec, self.train_tight = mirror_all_specs(
-            cfg.model_name, self.train_spec, self.train_tight)
+        with Timer("calibrate", self._built):
+            if cfg.spec_buckets > 1:
+                self.train_spec, self.train_tight = calibrate_spec(
+                    self.native, train_idx, cfg.train_batch_size,
+                    cfg.train_fanouts, cfg.calibration_batches,
+                    cfg.spec_safety, cfg.seed,
+                    worst_case_probe=cfg.calibrate_worst_case,
+                    tight_quantile=cfg.tight_quantile)
+            else:
+                self.train_spec = calibrate_spec(
+                    self.native, train_idx, cfg.train_batch_size,
+                    cfg.train_fanouts, cfg.calibration_batches,
+                    cfg.spec_safety, cfg.seed,
+                    worst_case_probe=cfg.calibrate_worst_case)
+                self.train_tight = None
+            self.train_spec, self.train_tight = mirror_all_specs(
+                cfg.model_name, self.train_spec, self.train_tight)
         # (split, fanouts) -> (spec, tight-or-None)
         self.eval_specs: Dict[tuple, tuple] = {}
         # per-split cold cap: calibrated once per (split, spec), and a floor
@@ -174,29 +185,28 @@ class Trainer:
         # the table in bf16 once on the host; the 128-column padding keeps
         # layer 0's weight shape that of the JAX package
         V = graph.num_nodes
-        x = torch.from_numpy(np.ascontiguousarray(pad_feature_dim(
-            np.asarray(graph.x, np.float32)))).to(torch.bfloat16)
         # hot/cold split (SALIENT++'s gpu_percent): the hot prefix lives on
         # the device, the cold tail in host RAM as bf16 bits (numpy has no
         # bf16), or fp8 bytes with a row scale under cold_fp8
         self.hot_cutoff = (None if cfg.hbm_fraction >= 1.0
                            else max(1, int(V * cfg.hbm_fraction)))
         H = self.hot_cutoff
-        self.x_cold_scale = None
+        self.x_cold, self.x_cold_scale = None, None
         # cold rows are UNIQUE frontier members, so a batch can never hold
         # more than the whole cold tail: the cap every growth clamps to
         self._cold_cap_max = 0 if H is None else -(-(V - H) // 128) * 128
-        if H is not None:
-            tail = x[H:]
-            if cfg.cold_fp8:
-                self.x_cold, self.x_cold_scale = fp8_encode_rows_np(
-                    tail.float().numpy())
-            else:
-                self.x_cold = tail.view(torch.int16).numpy().view(
-                    np.uint16).copy()
-            cold_cap = self._calibrate_cold_cap(train_idx)
-        else:
-            self.x_cold, cold_cap = None, 0
+        with Timer("table", self._built):
+            x = torch.from_numpy(np.ascontiguousarray(pad_feature_dim(
+                np.asarray(graph.x, np.float32)))).to(torch.bfloat16)
+            if H is not None:
+                tail = x[H:]
+                if cfg.cold_fp8:
+                    self.x_cold, self.x_cold_scale = fp8_encode_rows_np(
+                        tail.float().numpy())
+                else:
+                    self.x_cold = tail.view(torch.int16).numpy().view(
+                        np.uint16).copy()
+        cold_cap = 0 if H is None else self._calibrate_cold_cap(train_idx)
 
         # layer 0 aggregates straight from the device table when the
         # model's first hop consumes raw features (gsrc mode): the frontier
@@ -237,25 +247,27 @@ class Trainer:
                            (self._cold_cache is not None or self._gsrc_cold))
         self._fold_slack_at = (H if self._fold_cold
                                and self._cold_cache is None else None)
-        self.train_sampler = FastSampler(
-            self.native.rowptr, self.native.col,
-            np.asarray(graph.y, np.int32),
-            FastSamplerConfig(
-                spec=self.train_spec, batch_size=cfg.train_batch_size,
-                base_seed=cfg.seed, num_workers=cfg.num_workers,
-                max_batches_in_flight=cfg.max_batches_in_flight,
-                hot_cutoff=H, x_cold=self.x_cold,
-                x_cold_scale=self.x_cold_scale,
-                cold_cap=cold_cap, cold_cache=self._cold_cache,
-                cold_fold=self._fold_cold,
-                emit_gsrc=self.global_msg0,
-                compress_dst=self.compress_dst,
-                pack_wire=self.pack_wire,
-                tight_spec=self.train_tight,
-                pin_memory=self.device.type == "cuda"))
+        with Timer("sampler", self._built):
+            self.train_sampler = FastSampler(
+                self.native.rowptr, self.native.col,
+                np.asarray(graph.y, np.int32),
+                FastSamplerConfig(
+                    spec=self.train_spec, batch_size=cfg.train_batch_size,
+                    base_seed=cfg.seed, num_workers=cfg.num_workers,
+                    max_batches_in_flight=cfg.max_batches_in_flight,
+                    hot_cutoff=H, x_cold=self.x_cold,
+                    x_cold_scale=self.x_cold_scale,
+                    cold_cap=cold_cap, cold_cache=self._cold_cache,
+                    cold_fold=self._fold_cold,
+                    emit_gsrc=self.global_msg0,
+                    compress_dst=self.compress_dst,
+                    pack_wire=self.pack_wire,
+                    tight_spec=self.train_tight,
+                    pin_memory=self.device.type == "cuda"))
         self.shuffler = Shuffler(train_idx, initial_seed=cfg.seed + 2**31 - 1)
 
-        self.features = (x if H is None else x[:H]).to(self.device)
+        with Timer("table", self._built):
+            self.features = (x if H is None else x[:H]).to(self.device)
         if self._cold_cache is not None:
             self._ensure_slack(self._cold_cache.slots + 1)
         elif self._gsrc_cold:
@@ -263,6 +275,10 @@ class Trainer:
         self.in_features = int(self.features.shape[1])
         self.state: Optional[TrainState] = None
         self.reset()
+
+    def _built(self, part: str, seconds: float) -> None:
+        """``Timer`` callback: add a set-up part's seconds to ``build_s``."""
+        self.build_s[part] += seconds
 
     # --- the host cold tier -------------------------------------------
     def _plan_cold_cache(self, train_idx, cold_cap: int, V: int) -> int:
@@ -316,12 +332,14 @@ class Trainer:
         spec = spec or self.train_spec
         rng = np.random.default_rng(self.cfg.seed + 13)
         worst = align
-        for i in range(max(2, self.cfg.calibration_batches // 2)):
-            take = min(spec.seed_cap, len(pool))
-            seeds = np.sort(rng.choice(pool, take, replace=False))
-            b = self.native.sample(spec, seeds, rng_seed=77 + i)
-            n = int(b.level_sizes[-1])
-            worst = max(worst, int((b.n_id[:n] >= self.hot_cutoff).sum()))
+        with Timer("calibrate", self._built):
+            for i in range(max(2, self.cfg.calibration_batches // 2)):
+                take = min(spec.seed_cap, len(pool))
+                seeds = np.sort(rng.choice(pool, take, replace=False))
+                b = self.native.sample(spec, seeds, rng_seed=77 + i)
+                n = int(b.level_sizes[-1])
+                worst = max(worst,
+                            int((b.n_id[:n] >= self.hot_cutoff).sum()))
         cap = int(-(-int(worst * self.cfg.spec_safety) // align) * align)
         return min(cap, self._cold_cap_max)
 
@@ -339,8 +357,9 @@ class Trainer:
         if n <= self._slack:
             return
         f = self.features
-        self.features = torch.cat(
-            [f, f.new_zeros(n - self._slack, f.shape[1])])
+        with Timer("table", self._built):
+            self.features = torch.cat(
+                [f, f.new_zeros(n - self._slack, f.shape[1])])
         self._slack = n
 
     def _cold_update(self, batch):
@@ -360,13 +379,14 @@ class Trainer:
         for batches without cold rows; with ``fold`` the step applies the
         write itself; the overlay of the non-gsrc path runs in
         ``gather_features``."""
-        if batch.cold_rows is None or fold:
+        with span("step.pre"):
+            if batch.cold_rows is None or fold:
+                return batch
+            if self._cold_cache is not None:
+                return self._cache_update(batch)
+            if self._gsrc_cold:
+                self._cold_update(batch)
             return batch
-        if self._cold_cache is not None:
-            return self._cache_update(batch)
-        if self._gsrc_cold:
-            self._cold_update(batch)
-        return batch
 
     def run_step(self, batch) -> torch.Tensor:
         """_pre_step + one train step on a device batch; returns the loss
@@ -400,13 +420,15 @@ class Trainer:
     def reset(self, trial_seed: int = 0):
         """Fresh weights + optimizer (the per-trial reset)."""
         seed = self.cfg.seed + trial_seed
-        gen = torch.Generator().manual_seed(seed)
-        model = make_model(
-            self.cfg.model_name, self.in_features, self.cfg.hidden_features,
-            self.graph.num_classes, self.cfg.num_layers, self.cfg.dropout,
-            dtype=getattr(torch, self.cfg.compute_dtype), generator=gen)
-        self.state = create_train_state(model, self.cfg.lr, seed,
-                                        self.device)
+        with Timer("model", self._built):
+            gen = torch.Generator().manual_seed(seed)
+            model = make_model(
+                self.cfg.model_name, self.in_features,
+                self.cfg.hidden_features, self.graph.num_classes,
+                self.cfg.num_layers, self.cfg.dropout,
+                dtype=getattr(torch, self.cfg.compute_dtype), generator=gen)
+            self.state = create_train_state(model, self.cfg.lr, seed,
+                                            self.device)
 
     def _feeder(self, it, depth: int) -> DeviceFeeder:
         return DeviceFeeder(it, self.device, depth=depth,
@@ -534,13 +556,14 @@ class Trainer:
                    else cfg.batchwise_test_fanouts)
         key = (split, tuple(fanouts))
         if key not in self.eval_specs:
-            out = calibrate_spec(
-                self.native, self.graph.split_idx[split],
-                cfg.test_batch_size, fanouts,
-                cfg.calibration_batches, cfg.spec_safety, cfg.seed + 99,
-                worst_case_probe=cfg.calibrate_worst_case,
-                tight_quantile=(cfg.tight_quantile
-                                if cfg.spec_buckets > 1 else None))
+            with Timer("calibrate", self._built):
+                out = calibrate_spec(
+                    self.native, self.graph.split_idx[split],
+                    cfg.test_batch_size, fanouts,
+                    cfg.calibration_batches, cfg.spec_safety, cfg.seed + 99,
+                    worst_case_probe=cfg.calibrate_worst_case,
+                    tight_quantile=(cfg.tight_quantile
+                                    if cfg.spec_buckets > 1 else None))
             self.eval_specs[key] = out if isinstance(out, tuple) \
                 else (out, None)
         spec, tight = self.eval_specs[key]

@@ -9,7 +9,10 @@ that event has completed (earlier, the sampler could overwrite bytes the
 DMA has not read yet). Device tensors are marked as used by the compute
 stream, so the caching allocator does not hand their memory to the next
 copy while a step still reads it. Feed starvation and the host time of
-building and queuing the copies (``put_dur``) are counted.
+building and queuing the copies (``put_dur``) are counted. Under a
+profiler each ``next`` is the span ``feed.next``, holding ``feed.sample``
+(the wait on the sampler), ``feed.put`` (the batch built and its copies
+enqueued) and ``feed.recycle`` (a blocking wait on a copy's event).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..sampling.cpp import BatchBuffers
 from ..sampling.sampler import FastSamplerIter
+from ..utils.timing import span
 
 
 class DeviceFeeder:
@@ -77,12 +81,17 @@ class DeviceFeeder:
         return len(self.it)
 
     def __next__(self):
+        with span("feed.next"):
+            return self._next()
+
+    def _next(self):
         while len(self._inflight) < (self.depth if self.pipelined else 1):
             # a worker may need one of these buffers for the next batch
             self._recycle_done()
             try:
                 t0 = time.perf_counter()
-                bufs = next(self.it)
+                with span("feed.sample"):
+                    bufs = next(self.it)
                 dt = time.perf_counter() - t0
                 # any sampler wait after the initial fill delays the step
                 # this __next__ serves: that is feed starvation
@@ -90,12 +99,14 @@ class DeviceFeeder:
                     self.starved_dur += dt
                     self.starved_occasions += 1
                 t0 = time.perf_counter()
-                self._put(bufs)
+                with span("feed.put"):
+                    self._put(bufs)
                 self.put_dur += time.perf_counter() - t0
             except StopIteration:
                 break
         if not self._inflight:
-            self._recycle_done(wait=True)
+            with span("feed.recycle"):
+                self._recycle_done(wait=True)
             raise StopIteration
         dev, bufs, event = self._inflight.popleft()
         self._primed = True

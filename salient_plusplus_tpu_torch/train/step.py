@@ -3,6 +3,12 @@
 Forward → masked NLL → backward → Adam, run eagerly on the batch's device.
 Masked-loss convention: the model output is [seed_cap, C] log-probs and
 only rows < seed_count are real; the loss is the mean NLL over real rows.
+
+Under a profiler a train step is the span ``step.train`` holding, in
+order, ``step.decode``, ``step.gather`` (the frontier gather),
+``step.forward``, ``step.loss``, ``step.backward`` and ``step.optimizer``;
+an eval step is ``step.eval`` holding ``step.decode``, ``step.gather``,
+``step.forward`` and ``step.score``.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from ..ops.segment import gather_rows, valid_mask
 from ..ops.sorted_segment import _sorted_degrees, sorted_segment_sum_mxu
 from ..parallel.exchange import fp8_decode_rows
 from ..sampling.batch import PaddedBatch
+from ..utils.timing import span
 from .state import TrainState
 
 
@@ -114,33 +121,48 @@ def train_step(state: TrainState, features: torch.Tensor,
     the batch's cold rows into ``features`` in place (``write_cold_rows``:
     contiguously at ``fold_slack_at``, or, when that is None, to the
     cache slots)."""
-    if fold_cold:
-        write_cold_rows(features, batch, fold_slack_at)
-        batch = strip_cold(batch)
-    batch = decode_batch(batch)
-    gen = state.dropout_generator_for_step()
-    model = state.model
-    model.train()
-    x, extra = _x_and_extra(features, batch, global_msg0)
-    out = model(x, batch, training=True, generator=gen, **extra)
-    loss = masked_nll(out, batch.y, batch.seed_count)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
-    state.step += 1
-    return loss.detach()
+    with span("step.train"):
+        if fold_cold:
+            write_cold_rows(features, batch, fold_slack_at)
+            batch = strip_cold(batch)
+        with span("step.decode"):
+            batch = decode_batch(batch)
+        gen = state.dropout_generator_for_step()
+        model = state.model
+        model.train()
+        with span("step.gather"):
+            x, extra = _x_and_extra(features, batch, global_msg0)
+        with span("step.forward"):
+            out = model(x, batch, training=True, generator=gen, **extra)
+        with span("step.loss"):
+            loss = masked_nll(out, batch.y, batch.seed_count)
+        with span("step.backward"):
+            # launches nothing (the gradients go to None); it has to come
+            # before the backward, and the gradients stay readable after
+            # the step
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("step.optimizer"):
+            state.optimizer.step()
+        state.step += 1
+        return loss.detach()
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, features: torch.Tensor, batch: PaddedBatch,
               global_msg0: bool = False):
     """Batchwise eval: (correct, total) over seed rows, device scalars."""
-    batch = decode_batch(batch)
-    model = state.model
-    model.eval()
-    x, extra = _x_and_extra(features, batch, global_msg0)
-    out = model(x, batch, training=False, **extra)
-    pred = out.argmax(-1).to(torch.int32)
-    mask = valid_mask(out.shape[0], batch.seed_count)
-    correct = (mask & (pred == batch.y)).sum()
-    return correct, batch.seed_count.to(torch.int64)
+    with span("step.eval"):
+        with span("step.decode"):
+            batch = decode_batch(batch)
+        model = state.model
+        model.eval()
+        with span("step.gather"):
+            x, extra = _x_and_extra(features, batch, global_msg0)
+        with span("step.forward"):
+            out = model(x, batch, training=False, **extra)
+        with span("step.score"):
+            pred = out.argmax(-1).to(torch.int32)
+            mask = valid_mask(out.shape[0], batch.seed_count)
+            correct = (mask & (pred == batch.y)).sum()
+        return correct, batch.seed_count.to(torch.int64)

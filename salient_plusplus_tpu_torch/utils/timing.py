@@ -1,8 +1,16 @@
-"""Timing and region statistics (the JAX package's ``utils/timing.py``).
+"""Timing, region statistics and the program's spans (the JAX package's
+``utils/timing.py``, plus ``span``).
 
 Region timing is wall-clock on the host; a region that must include device
 work passes ``sync`` (e.g. ``torch.cuda.synchronize``), called before the
 region closes. Per-epoch aggregation skips the first (warm-up) epoch.
+
+``span(name)`` marks a layer boundary of the hot path on the device
+trace's clock: while a ``torch.profiler`` records (an operator's
+``profile_dir`` epoch, a benchmark's traced window) it is a
+``record_function``, so the trace holds it beside the kernels and copies
+launched inside it; at any other time it is one shared ``nullcontext``,
+and costs the check of the profiler's flag.
 """
 
 from __future__ import annotations
@@ -10,8 +18,22 @@ from __future__ import annotations
 import statistics
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, List, Optional
+
+import torch
+
+_OFF = nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager marking the span ``name``: a
+    ``torch.profiler.record_function`` while a torch profiler records,
+    otherwise the shared ``nullcontext``."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class Timer:
@@ -84,9 +106,3 @@ class RuntimeStats:
                 "stdev": statistics.stdev(vals) if len(vals) > 1 else 0.0,
             }
         return out
-
-    def report(self) -> str:
-        lines = [f"{'region':24s} {'mean(s)':>10s} {'stdev':>10s}"]
-        for n, s in self.summary().items():
-            lines.append(f"{n:24s} {s['mean']:10.4f} {s['stdev']:10.4f}")
-        return "\n".join(lines)
