@@ -34,7 +34,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SAMPLER_SRC = os.path.join(_PKG_DIR, "native", "sampler.cpp")
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-KERNELS = ("sorted_segment_sum", "gather_rows", "fused_gather_segment_sum")
+KERNELS = ("sorted_segment_sum", "gather_rows", "fused_gather_segment_sum",
+           "weighted_segment_sum")
 # one lock per library, so the sampler and the kernels build in parallel
 _locks = {stem: threading.Lock()
           for stem in ("sptpu", *(f"sptpu_{k}" for k in KERNELS))}

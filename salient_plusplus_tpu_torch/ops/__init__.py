@@ -7,6 +7,7 @@ from .segment import (
     segment_degrees_sorted, valid_mask,
 )
 from .sorted_segment import sorted_segment_sum, sorted_segment_sum_mxu, spmm_agg
+from .weighted_segment import weighted_segment_sum, weighted_segment_sum_op
 
 __all__ = [
     "fused_gather_segment_sum", "fused_segment_sum_op",
@@ -14,13 +15,15 @@ __all__ = [
     "gather_rows", "masked_segment_mean", "masked_segment_sum",
     "segment_degrees_sorted", "valid_mask",
     "sorted_segment_sum", "sorted_segment_sum_mxu", "spmm_agg",
-    "launch_counts",
+    "weighted_segment_sum", "weighted_segment_sum_op", "launch_counts",
 ]
 
 
 def launch_counts() -> dict:
     """Each CUDA kernel's launches so far in this process, by wrapper
-    (K1, K2, K3); the plain versions that run on the CPU count none."""
+    (K1, K2, K3 and GAT's weighted sum); the plain versions that run on
+    the CPU count none."""
     return {"sorted_segment_sum": sorted_segment_sum_mxu.launches,
             "fused_gather_segment_sum": fused_gather_segment_sum.launches,
-            "gather_rows": pallas_gather_rows.launches}
+            "gather_rows": pallas_gather_rows.launches,
+            "weighted_segment_sum": weighted_segment_sum.launches}

@@ -3,7 +3,8 @@ the JAX package's ``ops/gat_agg.py``, with its public names).
 
     fwd:  z    = leaky_relu(a_src[src] + a_dst[dst])            (H-wide)
           att  = softmax_per_target(z ∪ z_self)
-          out  = segsum_dst(att · xs[src]) + self_att · xt      (K1)
+          out  = segsum_dst(att · xs[src]) + self_att · xt
+                 (the fused weighted gather + segment sum)
           residuals: per-target (m, D), the softmax max and denominator,
           plus self_att and the f32 out.
     bwd:  S    = <g, out> per (target, head): the softmax-backward sum
@@ -14,16 +15,20 @@ the JAX package's ``ops/gat_agg.py``, with its public names).
           d_a_src = segsum_msrc(dz_m)                 (sorted, H-wide)
           d_a_dst = segsum_mdst(dz_m)       (unsorted, only H-wide)
 
-Both wide sums are the sorted segment-sum kernel K1; the H-wide ones are
-``index_add_`` (the JAX package's are XLA scatters, not Pallas kernels).
-It needs the hop's src-sorted mirror (``msrc``/``mdst``).
+The forward's weighted sum is ``ops/weighted_segment.py`` (a CUDA kernel
+that reads each ``xs[src]`` row, scales it by the edge's f32 attention in
+registers and sums it by target: no [E, H·C] tensor is written); the
+backward's d_xs is the sorted segment-sum kernel K1 over the mirror; the
+H-wide sums are ``index_add_`` (the JAX package's are XLA scatters, not
+Pallas kernels). It needs the hop's src-sorted mirror (``msrc``/``mdst``).
 
 ``gat_attention_agg_autodiff`` is the same block as autograd
-differentiates it (GATConv's default path): K1 for the forward sum, its
-masked-gather backward, and the transpose of the ``xs[src]`` gather, an
-``index_add_`` over unsorted src. The custom block is off by default, as
-in the JAX package, whose TPU measurement found its backward slower than
-the autodiff one: ``SPTPU_GAT_CUSTOM_VJP=1`` turns it on. Both launch K1.
+differentiates it (GATConv's default path): the same fused weighted sum
+forward, whose backward gathers the output gradient by dst and sums the
+weighted rows over unsorted src with ``index_add_``. The custom block is
+off by default, as in the JAX package, whose TPU measurement found its
+backward slower than the autodiff one: ``SPTPU_GAT_CUSTOM_VJP=1`` turns
+it on.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from .segment import masked_segment_sum, segment_softmax_self, valid_mask
-from .sorted_segment import sorted_segment_sum, sorted_segment_sum_mxu
+from .sorted_segment import sorted_segment_sum_mxu
+from .weighted_segment import weighted_segment_sum, weighted_segment_sum_op
 
 
 def gat_custom_agg_enabled() -> bool:
@@ -51,8 +57,6 @@ class _GatAttentionAgg(torch.autograd.Function):
     def forward(ctx, xs, xt, a_src, a_dst, src, dst, count, msrc, mdst,
                 out_cap: int, ns: float):
         T = out_cap
-        N, H, C = xs.shape
-        E = src.shape[0]
         # pad dst is out_cap (or above it in a tight bucket): it reads a real
         # row, and the softmax masks the edge
         raw = (a_src.index_select(0, src)
@@ -61,10 +65,8 @@ class _GatAttentionAgg(torch.autograd.Function):
         z_self = F.leaky_relu(a_src[:T] + a_dst, ns)
         att, self_att, m_t, d_t = segment_softmax_self(
             z, dst, count, T, z_self, return_stats=True)
-        msg = xs.reshape(N, H * C).index_select(0, src).view(E, H, C)
-        msg = msg * att[:, :, None].to(xs.dtype)
-        out32 = sorted_segment_sum_mxu(msg.reshape(E, H * C), dst, T)
-        out32 = out32.view(T, H, C) + self_att[:, :, None] * xt.float()
+        out32 = weighted_segment_sum(xs, att.float(), src, dst, count, T)
+        out32 = out32 + self_att[:, :, None] * xt.float()
         ctx.ns = ns
         ctx.save_for_backward(m_t, d_t, self_att, out32, xs, xt, a_src,
                               a_dst, count, msrc, mdst)
@@ -137,10 +139,9 @@ def gat_attention_agg_autodiff(out_cap: int, negative_slope: float, xs, xt,
                                a_src, a_dst, src, dst, count):
     """The function of ``gat_attention_agg``, differentiated by autograd
     (no mirror needed). The logits take ``a_src``'s dtype, the softmax runs
-    in f32, the messages in ``xs.dtype``; returns [T, H, C] in xs.dtype."""
+    in f32, the weighted sum multiplies the f32 attention into each row in
+    f32; returns [T, H, C] in xs.dtype."""
     T = out_cap
-    N, H, C = xs.shape
-    E = src.shape[0]
     ns = negative_slope
     # pad dst is out_cap (or above it in a tight bucket): it reads a real
     # row, and the softmax gives the edge attention 0
@@ -149,7 +150,5 @@ def gat_attention_agg_autodiff(out_cap: int, negative_slope: float, xs, xt,
     self_logit = F.leaky_relu(a_src[:T] + a_dst, ns)
     att, self_att = segment_softmax_self(logits.float(), dst, count, T,
                                          self_logit.float())
-    msg = xs.reshape(N, H * C).index_select(0, src).view(E, H, C)
-    msg = (msg * att.to(xs.dtype)[:, :, None]).reshape(E, H * C)
-    out = sorted_segment_sum(T, msg, dst).view(T, H, C).to(xs.dtype)
-    return out + xt * self_att.to(xs.dtype)[:, :, None]
+    out = weighted_segment_sum_op(xs, att, src, dst, count, T)
+    return out.to(xs.dtype) + xt * self_att.to(xs.dtype)[:, :, None]

@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from ..native.build import launch_kernel
-from .segment import _safe_dst
+from .segment import _real_rows, _safe_dst
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -57,8 +57,7 @@ def _fused_gather_segment_sum_plain(emb: torch.Tensor, src: torch.Tensor,
     """Plain torch version of the kernel: row gather, then f32
     ``index_add_`` over the real edges. Dropped edges read row 0, so no pad
     src (which need not be a valid row) is ever used as an index."""
-    ids = _safe_dst(dst, count, num_segments)
-    rows = torch.where(ids < num_segments, src.long(), 0)
+    ids, rows = _real_rows(src, dst, count, num_segments)
     out = torch.zeros(num_segments + 1, emb.shape[1], dtype=torch.float32,
                       device=emb.device)
     return out.index_add_(0, ids, emb.index_select(0, rows).float()

@@ -46,6 +46,15 @@ def _safe_dst(dst: torch.Tensor, count, num_segments: int) -> torch.Tensor:
     return torch.where(keep, dst.long(), num_segments)
 
 
+def _real_rows(src: torch.Tensor, dst: torch.Tensor, count,
+               num_segments: int):
+    """(ids, rows) of a gathering segment sum: ``_safe_dst``'s ids, and
+    src with every dropped edge routed to row 0, so no pad src (which need
+    not be a row) is used as an index."""
+    ids = _safe_dst(dst, count, num_segments)
+    return ids, torch.where(ids < num_segments, src.long(), 0)
+
+
 def masked_segment_sum(values: torch.Tensor, dst: torch.Tensor, count,
                        num_segments: int) -> torch.Tensor:
     """out[dst[e]] += values[e] for real edges (e < count); [T, ...]."""

@@ -1,0 +1,133 @@
+"""GAT's attention-weighted message sum, fused:
+
+    out[t, h, :] = sum over e < count with dst[e] == t of
+                   att[e, h] * xs[src[e], h, :]
+
+without the [E, H * C] messages ``xs[src]`` and their scaled copy that a
+gather, a broadcast multiply and the sorted segment sum would write. It
+replaces no TPU kernel: the JAX package (``ops/gat_agg.py``) takes the
+three steps. On a CUDA tensor it is the hand-written kernel
+``csrc/weighted_segment_sum.cu`` (K2's edge slices, ``csrc/
+segment_common.cuh``, with an f32 weight an edge and head); on a CPU tensor
+``_weighted_segment_sum_plain``. There is no fallback between the two.
+
+``weighted_segment_sum_op`` is differentiable. Its backward does what
+autograd did through the three steps: the output gradient gathered by dst
+and masked, ``d_att`` its dot with ``xs[src]`` per head, ``d_xs`` the
+weighted rows summed over src by ``index_add_``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..native.build import launch_kernel
+from .pallas_aggregate import _DTYPE_CODE, _split_scratch
+from .segment import _real_rows
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64]
+
+
+def _weighted_segment_sum_plain(xs: torch.Tensor, att: torch.Tensor,
+                                src: torch.Tensor, dst: torch.Tensor, count,
+                                num_segments: int) -> torch.Tensor:
+    """Plain torch version of the kernel: row gather, the product with the
+    weight in f32, f32 ``index_add_`` over the real edges."""
+    N, H, C = xs.shape
+    ids, rows = _real_rows(src, dst, count, num_segments)
+    msg = xs.index_select(0, rows).float() * att.float()[:, :, None]
+    out = torch.zeros(num_segments + 1, H, C, dtype=torch.float32,
+                      device=xs.device)
+    return out.index_add_(0, ids, msg)[:num_segments]
+
+
+def weighted_segment_sum(xs: torch.Tensor, att: torch.Tensor,
+                         src: torch.Tensor, dst: torch.Tensor, count,
+                         num_segments: int) -> torch.Tensor:
+    """Segment sum of ``att[e, h] * xs[src[e], h]`` (xs [N, H, C] bf16 or
+    f32, att [E, H] f32) by ``dst`` [E] int32, nondecreasing over the
+    first ``count`` edges (a 0-d int32 tensor or an int); edges ``>=
+    count`` and ids ``>= num_segments`` are dropped, their src and weight
+    never read. Returns float32 [num_segments, H, C]."""
+    if xs.device.type == "cpu" and src.device.type == "cpu":
+        return _weighted_segment_sum_plain(xs, att, src, dst, count,
+                                           num_segments)
+    if xs.device.type != "cuda":
+        raise ValueError(f"weighted_segment_sum: unsupported device "
+                         f"{xs.device}")
+    if not isinstance(count, torch.Tensor):
+        count = torch.tensor(count, dtype=torch.int32, device=xs.device)
+    for name, t in (("att", att), ("src", src), ("dst", dst),
+                    ("count", count)):
+        if t.device != xs.device:
+            raise ValueError(f"{name} on {t.device}, xs on {xs.device}")
+    for name, t in (("src", src), ("dst", dst), ("count", count)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} dtype {t.dtype}: int32")
+    if xs.dtype not in _DTYPE_CODE:
+        raise TypeError(f"xs dtype {xs.dtype}: bfloat16 or float32")
+    if att.dtype != torch.float32:
+        raise TypeError(f"att dtype {att.dtype}: float32")
+    if (xs.dim() != 3 or src.dim() != 1 or src.shape != dst.shape
+            or att.shape != (src.shape[0], xs.shape[1])
+            or count.numel() != 1):
+        raise ValueError(f"shapes xs {tuple(xs.shape)} att "
+                         f"{tuple(att.shape)} src {tuple(src.shape)} dst "
+                         f"{tuple(dst.shape)} count {tuple(count.shape)}: "
+                         f"expected [N, H, C], [E, H], [E], [E] and one "
+                         f"value")
+    if not all(t.is_contiguous() for t in (xs, att, src, dst)):
+        raise ValueError("xs, att, src and dst must be contiguous")
+    _, H, C = xs.shape
+    out = torch.empty(num_segments, H, C, dtype=torch.float32,
+                      device=xs.device)
+    if num_segments == 0 or H * C == 0:
+        return out
+    scratch = _split_scratch(src.shape[0], H * C, xs.device)
+    launch_kernel("weighted_segment_sum", _ARGTYPES, xs.device,
+                  xs.data_ptr(), _DTYPE_CODE[xs.dtype], att.data_ptr(),
+                  src.data_ptr(), dst.data_ptr(), count.data_ptr(),
+                  src.shape[0], num_segments, H, C, out.data_ptr(),
+                  scratch.data_ptr(), scratch.numel())
+    weighted_segment_sum.launches += 1
+    return out
+
+
+weighted_segment_sum.launches = 0
+
+
+class _WeightedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, att, src, dst, count, num_segments: int):
+        ctx.num_segments = num_segments
+        ctx.save_for_backward(xs, att, src, dst, count)
+        return weighted_segment_sum(xs, att, src, dst, count, num_segments)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        xs, att, src, dst, count = ctx.saved_tensors
+        T = ctx.num_segments
+        ids, rows = _real_rows(src, dst, count, T)
+        # the output gradient of each real edge's target (0 for the rest)
+        g = torch.cat([d_out.to(xs.dtype), d_out.new_zeros(
+            (1,) + d_out.shape[1:], dtype=xs.dtype)]).index_select(0, ids)
+        d_att = d_xs = None
+        if ctx.needs_input_grad[1]:
+            d_att = (g * xs.index_select(0, rows)).sum(
+                -1, dtype=torch.float32)
+        if ctx.needs_input_grad[0]:
+            d_xs = torch.zeros_like(xs).index_add_(
+                0, rows, g * att.to(xs.dtype)[:, :, None])
+        return d_xs, d_att, None, None, None, None
+
+
+def weighted_segment_sum_op(xs, att, src, dst, count, num_segments: int):
+    """Differentiable ``weighted_segment_sum``: kernel forward, gather and
+    ``index_add_`` backward."""
+    count = torch.as_tensor(count, dtype=torch.int32, device=src.device)
+    return _WeightedSegmentSum.apply(xs, att, src, dst, count, num_segments)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 sorted segment sum, K2 fused gather +
-segment sum, K3 row gather) against their plain versions, on the card.
+segment sum, K3 row gather, GAT's weighted gather + segment sum) against
+their plain versions, on the card.
 
 Run on a machine with an NVIDIA GPU:
 
@@ -21,7 +22,10 @@ add a 300k-edge segment in one f32 chain, which drifts further than that
 from the exact sum when the rows repeat. For bfloat16 vals kernel and
 plain version both accumulate the same bf16 inputs in float32, compared
 at rtol 1e-2. K2 sums the same rows as K1 and is held to the same
-tolerances; K3 copies bytes and must be exact.
+tolerances; K3 copies bytes and must be exact. GAT's weighted sum
+multiplies each row, converted to float32 exactly, by a float32 weight:
+kernel and plain version, in either row type, are held to the float64
+sum of the same products by the float32 rule.
 """
 
 import numpy as np
@@ -31,6 +35,7 @@ import torch
 from salient_plusplus_tpu_torch.ops import pallas_aggregate as A
 from salient_plusplus_tpu_torch.ops import pallas_gather as G
 from salient_plusplus_tpu_torch.ops import sorted_segment as S
+from salient_plusplus_tpu_torch.ops import weighted_segment as W
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -371,9 +376,9 @@ def test_gather_kernel_gradient_matches_index_select(cuda_device, dtype):
                                   (2048, 256, 600, 2048, 2, 32),
                                   (1024, 128, 256, 0, 1, 64)])
 def test_gat_attention_agg_on_card_matches_cpu(cuda_device, case):
-    """The custom-VJP attention block on the card (K1 forward and K1 over
-    the mirror for d_xs) against the CPU's plain versions, f32: summation
-    order only, 1e-4."""
+    """The custom-VJP attention block on the card (the weighted gather +
+    segment sum forward, K1 over the mirror for d_xs) against the CPU's
+    plain versions, f32: summation order only, 1e-4."""
     from salient_plusplus_tpu_torch.ops.gat_agg import gat_attention_agg
 
     E, T, N, n, H, C = case
@@ -392,13 +397,15 @@ def test_gat_attention_agg_on_card_matches_cpu(cuda_device, case):
               for a in floats]
         s, d, ms, md = (torch.from_numpy(a).to(dev) for a in idx)
         k1 = S.sorted_segment_sum_mxu.launches
+        ws = W.weighted_segment_sum.launches
         out = gat_attention_agg(T, 0.2, *ts, s, d,
                                 torch.tensor(n, dtype=torch.int32,
                                              device=dev), ms, md)
         (out * g.to(dev)).sum().backward()
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert S.sorted_segment_sum_mxu.launches == k1 + 2
+            assert S.sorted_segment_sum_mxu.launches == k1 + 1
+            assert W.weighted_segment_sum.launches == ws + 1
         res.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
     for a, b in zip(*res):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
@@ -410,9 +417,10 @@ def test_model_step_on_card_matches_cpu(cuda_device, name, monkeypatch):
     ARMA from the same weights and batch, on the card (kernels) and on the
     CPU (plain versions): float32 with TF32 off, dropout 0, so the two
     differ in summation order only. Loss within 1e-5, each gradient
-    within 1e-3 relative (Frobenius) error; the card's step launches K1 and
-    K3 (GAT and GCN: K1 once per hop forward; GCN also per hop backward;
-    ARMA: K3 once per hop)."""
+    within 1e-3 relative (Frobenius) error; the card's step launches its
+    kernels (GAT: the weighted sum once per hop forward, and with the
+    custom VJP K1 once per hop backward; GCN: K1 once per hop forward and
+    backward; ARMA: K3 once per hop; K3 once for the features)."""
     from salient_plusplus_tpu_torch.data import synthetic
     from salient_plusplus_tpu_torch.models import make_model
     from salient_plusplus_tpu_torch.sampling.batch import (BatchSpec,
@@ -445,19 +453,154 @@ def test_model_step_on_card_matches_cpu(cuda_device, name, monkeypatch):
         st = TrainState(m.to(dev), 0.003, seed=0, device=torch.device(dev))
         k1 = S.sorted_segment_sum_mxu.launches
         k3 = G.pallas_gather_rows.launches
+        ws = W.weighted_segment_sum.launches
         loss = float(train_step(st, feats.to(dev), b.to(dev)))
         out[str(dev)] = (loss, {k: p.grad.detach().cpu() for k, p in
                                 m.named_parameters()})
         if dev != "cpu":
             k1 = S.sorted_segment_sum_mxu.launches - k1
             k3 = G.pallas_gather_rows.launches - k3
-            want_k1 = {"GAT": 3, "GAT-custom": 6, "GCN": 6, "ARMA": 0}[name]
-            assert (k1, k3) == (want_k1, 4 if name == "ARMA" else 1)
+            ws = W.weighted_segment_sum.launches - ws
+            want_k1 = {"GAT": 0, "GAT-custom": 3, "GCN": 6, "ARMA": 0}[name]
+            want_ws = 3 if model_name == "GAT" else 0
+            assert (k1, k3, ws) == (want_k1, 4 if name == "ARMA" else 1,
+                                    want_ws)
     (lc, gc), (lg, gg) = out["cpu"], out[str(cuda_device)]
     assert abs(lc - lg) < 1e-5, (lc, lg)
     for k in gc:
         rel = float((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-12))
         assert rel < 1e-3, (k, rel)
+
+
+# GAT's weighted gather + segment sum: (E, T, N, n_real, H, C, kind), kind
+# as in _real_ids
+WEIGHTED_CASES = [
+    (4096, 512, 2000, 3900, 1, 256, "uniform"),  # the cell's 256-wide rows
+    (4096, 512, 2000, 3900, 2, 256, "uniform"),
+    (2048, 300, 1000, 1800, 1, 47, "uniform"),   # 94-byte bf16 rows: the
+    (2048, 300, 1000, 1800, 2, 47, "hub"),       # one-element path
+    (1024, 128, 500, 1000, 1, 8, "hub"),
+    (1024, 128, 500, 1000, 2, 8, "uniform"),
+    # one segment holds every real edge, over ~600 slices
+    (40_000, 64, 5000, 39_000, 1, 256, "one"),
+    (512, 128, 300, 0, 1, 256, "uniform"),       # count 0
+]
+
+
+def _weighted_case(E, T, N, n_real, H, C, kind, dtype, device, seed=0):
+    """Sorted real dst, then real-looking dst values, src ids that are no
+    row and NaN weights past count; dst pads above T in the hub case."""
+    rng = np.random.default_rng(seed + E + H * C)
+    dst = np.concatenate([_real_ids(rng, T, n_real, kind),
+                          rng.integers(0, T + 9, E - n_real)])
+    src = np.concatenate([rng.integers(0, N, n_real),
+                          np.full(E - n_real, 2**31 - 1)])
+    att = rng.random((E, H)).astype(np.float32)
+    att[n_real:] = np.nan
+    xs = rng.standard_normal((N, H, C)).astype(np.float32)
+    return (torch.from_numpy(xs).to(device, dtype),
+            torch.from_numpy(att).to(device),
+            torch.from_numpy(src.astype(np.int32)).to(device),
+            torch.from_numpy(dst.astype(np.int32)).to(device),
+            torch.tensor(n_real, dtype=torch.int32, device=device))
+
+
+def _exact_weighted(xs, att, src, dst, count, T):
+    """The weighted sum in float64 (edges past count and pads dropped), and
+    the sum of |terms| a row, both [T, H * C]."""
+    from salient_plusplus_tpu_torch.ops.segment import _real_rows
+
+    ids, rows = _real_rows(src, dst, count, T)
+    v = xs.index_select(0, rows).double() * att.double().nan_to_num()[
+        :, :, None]
+    return _exact(v.reshape(v.shape[0], -1), ids.int(), T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+def test_weighted_kernel_matches_plain(cuda_device, case, dtype):
+    """Kernel and plain version against the float64 sum of the same
+    products, one launch a call; count 0 writes zeros."""
+    E, T, N, n_real, H, C, kind = case
+    xs, att, src, dst, cnt = _weighted_case(*case, dtype, cuda_device)
+    n0 = W.weighted_segment_sum.launches
+    got = W.weighted_segment_sum(xs, att, src, dst, cnt, T)
+    torch.cuda.synchronize()
+    assert W.weighted_segment_sum.launches == n0 + 1
+    assert got.shape == (T, H, C) and got.dtype == torch.float32
+    plain = W._weighted_segment_sum_plain(xs, att, src, dst, cnt, T)
+    exact = _exact_weighted(xs, att, src, dst, cnt, T)
+    for out in (got, plain):
+        _assert_matches(out.view(T, H * C), exact, plain.view(T, H * C),
+                        torch.float32)
+    if n_real == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_weighted_kernel_is_deterministic(cuda_device):
+    """The one-segment case and a typical one, bf16, three calls each:
+    bit-identical outputs."""
+    for case in (WEIGHTED_CASES[6], WEIGHTED_CASES[0]):
+        args = _weighted_case(*case, torch.bfloat16, cuda_device)
+        first = W.weighted_segment_sum(*args, case[1])
+        for _ in range(2):
+            assert torch.equal(W.weighted_segment_sum(*args, case[1]), first)
+
+
+def test_weighted_kernel_rejects_bad_inputs(cuda_device):
+    xs = torch.zeros(8, 1, 4, device=cuda_device)
+    att = torch.zeros(8, 1, device=cuda_device)
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        W.weighted_segment_sum(xs, att.bfloat16(), i32, i32, 8, 2)
+    with pytest.raises(TypeError):
+        W.weighted_segment_sum(xs, att, i32.long(), i32, 8, 2)
+    with pytest.raises(ValueError):
+        W.weighted_segment_sum(xs, att[:4], i32, i32, 8, 2)
+    with pytest.raises(ValueError):
+        W.weighted_segment_sum(xs.view(8, 4), att, i32, i32, 8, 2)
+
+
+def test_gat_forward_on_card_one_weighted_launch_a_layer(cuda_device):
+    """A 3-layer GAT's scoring forward on the card: the weighted sum once a
+    layer, no K1 (so none under ``gat.attention``), logits within 1e-4 of
+    the CPU's (float32, TF32 off: summation order only)."""
+    from salient_plusplus_tpu_torch.data import synthetic
+    from salient_plusplus_tpu_torch.models import make_model
+    from salient_plusplus_tpu_torch.sampling.batch import BatchSpec
+    from salient_plusplus_tpu_torch.sampling.cpp import NativeSampler
+    from salient_plusplus_tpu_torch.train.step import (decode_batch,
+                                                       gather_features)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = synthetic.planted_partition("cuda-gat", num_nodes=3000,
+                                    num_classes=6, avg_degree=10,
+                                    num_features=24, seed=4)
+    b = NativeSampler(np.asarray(g.rowptr), np.asarray(g.col)).sample(
+        BatchSpec.worst_case(256, [8, 8, 8]),
+        np.sort(g.split_idx["test"][:256]), rng_seed=3)
+    feats = torch.from_numpy(np.asarray(g.x, np.float32))
+    model = make_model("GAT", 24, 64, 6, 3, dropout=0.0,
+                       dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = make_model("GAT", 24, 64, 6, 3, dropout=0.0,
+                       dtype=torch.float32)
+        m.load_state_dict(model.state_dict())
+        m.to(dev).eval()
+        bd = decode_batch(b.to(dev))
+        x = gather_features(feats.to(dev), bd)
+        k1 = S.sorted_segment_sum_mxu.launches
+        ws = W.weighted_segment_sum.launches
+        with torch.no_grad():
+            out[str(dev)] = m(x, bd, training=False).cpu()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert S.sorted_segment_sum_mxu.launches == k1
+            assert W.weighted_segment_sum.launches == ws + 3
+    torch.testing.assert_close(out[str(cuda_device)], out["cpu"], atol=1e-4,
+                               rtol=1e-4)
 
 
 def _cold_trainer(device, **kw):

@@ -1,7 +1,9 @@
 """GAT in the port against the JAX package, on the CPU: the four softmax
-ops of ``ops/segment.py``, ``GATConv`` forward and gradients, and the
+ops of ``ops/segment.py``, ``GATConv`` forward and gradients, the
 custom-VJP attention block ``ops/gat_agg.py`` against JAX's and against
-the port's own autodiff path.
+the port's own autodiff path, and the fused weighted sum of both blocks
+(``ops/weighted_segment.py``) against a loop, JAX's block and the
+gather → multiply → segment sum it replaces.
 
 Inputs are made with numpy from a seed and handed to both packages. The
 JAX package's Pallas kernels run in interpret mode, as its own tests run
@@ -29,6 +31,8 @@ from salient_plusplus_tpu_torch import weights
 from salient_plusplus_tpu_torch.models.layers import GATConv
 from salient_plusplus_tpu_torch.ops import gat_agg as tgat
 from salient_plusplus_tpu_torch.ops import segment as tseg
+from salient_plusplus_tpu_torch.ops import weighted_segment as tws
+from salient_plusplus_tpu_torch.ops.sorted_segment import sorted_segment_sum
 from salient_plusplus_tpu_torch.sampling.batch import EdgeBlock
 from tests.test_gat_agg import _hop
 
@@ -321,3 +325,90 @@ def test_gatconv_custom_vjp_path_matches_default(monkeypatch):
                                      (xt, *conv.parameters())])
     for a, b in zip(*res):
         torch.testing.assert_close(a, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+# ------------------------------------------------------ the weighted sum
+# AGG_CASES with their pads at T, then tight buckets (pads above T): (E, T,
+# N, n_real, H, C, pads above T)
+WEIGHTED_CASES = ([(*c, 0) for c in AGG_CASES]
+                  + [(512, 64, 256, 400, 1, 16, 7),
+                     (768, 96, 200, 500, 2, 12, 3)])
+
+
+def _weighted_inputs(E, T, N, n_real, H, C, above):
+    idx, floats, g = _agg_inputs(E, T, N, n_real, H, C)
+    idx[1][n_real:] += above
+    return idx, floats, g
+
+
+def _loop_weighted(xs, att, src, dst, n_real, T):
+    """The weighted sum edge by edge in float64: real edges below n_real
+    with dst below T."""
+    out = np.zeros((T,) + xs.shape[1:])
+    for e in range(n_real):
+        if dst[e] < T:
+            out[dst[e]] += att[e][:, None] * xs[src[e]].astype(np.float64)
+    return out
+
+
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+def test_weighted_segment_sum_plain_matches_loop(case):
+    """The plain version drops edges past count (here with real-looking
+    dst values, src ids that are no row and NaN weights) and pads at or
+    above T."""
+    E, T, N, n_real, H, C, above = case
+    (src, dst, _, _), (xs, *_), _ = _weighted_inputs(*case)
+    rng = np.random.default_rng(E + H)
+    att = rng.random((E, H)).astype(np.float32)
+    want = _loop_weighted(xs, att, src, dst, n_real, T)
+    dst, src, att = dst.copy(), src.copy(), att.copy()
+    dst[n_real:] = rng.integers(0, T, E - n_real)
+    src[n_real:] = 2**31 - 1
+    att[n_real:] = np.nan
+    got = tws.weighted_segment_sum(*map(torch.from_numpy, (xs, att, src,
+                                                           dst)),
+                                   torch.tensor(n_real, dtype=torch.int32), T)
+    assert got.dtype == torch.float32 and got.shape == (T, H, C)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+def test_gat_block_forward_with_weighted_sum_matches_jax(case):
+    """GATConv's default block, whose weighted sum is the fused op, against
+    the JAX package's ``gat_agg`` forward (its Pallas segment sum
+    interpreted), pads at T and above it."""
+    E, T, N, n_real, H, C, above = case
+    idx, floats, _ = _weighted_inputs(*case)
+    ji = tuple(map(jnp.asarray, idx))
+    jout = np.asarray(jax.jit(
+        lambda xs, xt, a_s, a_d: jgat.gat_attention_agg(
+            T, 0.2, xs, xt, a_s, a_d, ji[0], ji[1], jnp.int32(n_real),
+            ji[2], ji[3]))(*map(jnp.asarray, floats)))
+    out = _port_autodiff(T, idx, n_real)(*map(torch.from_numpy, floats))
+    np.testing.assert_allclose(out.numpy(), jout, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+def test_weighted_segment_sum_gradients_match_three_ops(case):
+    """The op's forward and gradients against autograd through the gather
+    → multiply → sorted segment sum it replaces (pad edges weigh 0, as the
+    softmax leaves them)."""
+    E, T, N, n_real, H, C, above = case
+    (src, dst, _, _), (xs, *_), g = _weighted_inputs(*case)
+    att = np.random.default_rng(E + H).random((E, H)).astype(np.float32)
+    att[n_real:] = 0
+    src, dst = torch.from_numpy(src), torch.from_numpy(dst)
+
+    def three_ops(x, a):
+        msg = x.reshape(N, H * C).index_select(0, src).view(E, H, C)
+        msg = (msg * a[:, :, None]).reshape(E, H * C)
+        return sorted_segment_sum(T, msg, dst).view(T, H, C)
+
+    def fused(x, a):
+        return tws.weighted_segment_sum_op(x, a, src, dst, n_real, T)
+
+    out, grads = _torch_grads(fused, (xs, att), g)
+    ref, ref_grads = _torch_grads(three_ops, (xs, att), g)
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+    for name, a, b in zip(("xs", "att"), grads, ref_grads):
+        np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL, err_msg=name)

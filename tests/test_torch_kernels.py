@@ -9,6 +9,8 @@ edges past ``count`` itself (JAX builds tile pointers for that), which is
 checked with real-looking ``dst`` values written past ``count``.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -171,21 +173,43 @@ def test_new_wrappers_refuse_other_devices():
 
 
 def test_segment_kernels_hash_their_shared_header(monkeypatch):
-    """K1 and K2 include csrc/segment_common.cuh: the header is on nvcc's
-    include path and joins each library's hash, so an edited header
-    rebuilds both (nothing is compiled here)."""
+    """K1, K2 and GAT's weighted sum include csrc/segment_common.cuh: the
+    header is on nvcc's include path and joins each library's hash, so an
+    edited header rebuilds all three (nothing is compiled here)."""
     from salient_plusplus_tpu_torch.native import build
 
     seen = {}
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(build, "_build", lambda stem, srcs, cmd_for: seen
                         .setdefault(stem, (srcs, cmd_for("OUT"))))
-    for name in ("sorted_segment_sum", "fused_gather_segment_sum"):
+    for name in ("sorted_segment_sum", "fused_gather_segment_sum",
+                 "weighted_segment_sum"):
         build.kernel_lib_path(name)
         srcs, cmd = seen[f"sptpu_{name}"]
         assert srcs[0].endswith(f"csrc/{name}.cu") and cmd[-1] == srcs[0]
         assert any(s.endswith("csrc/segment_common.cuh") for s in srcs)
         assert cmd[cmd.index("-I") + 1] == build._CSRC
+
+
+def test_weighted_kernel_entry_point_matches_its_argtypes():
+    """The C entry point of csrc/weighted_segment_sum.cu takes the
+    wrapper's ctypes arguments and the stream, pointers as void* and sizes
+    as int64_t (nothing is compiled here)."""
+    import re
+
+    from salient_plusplus_tpu_torch.native import build
+    from salient_plusplus_tpu_torch.ops import weighted_segment as W
+
+    with open(f"{build._CSRC}/weighted_segment_sum.cu") as f:
+        params = re.search(r"int sptpu_weighted_segment_sum\(([^)]*)\)",
+                           f.read()).group(1).split(",")
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int: "int",
+             ctypes.c_int64: "int64_t"}
+    want = [kinds[t] for t in W._ARGTYPES] + ["void*"]
+    got = [re.sub(r"\s+", " ", p).replace("const ", "").strip()
+           .rsplit(" ", 1)[0].replace(" *", "*") for p in params]
+    assert got == want
+    assert "weighted_segment_sum" in build.KERNELS
 
 
 def test_split_scratch_matches_the_kernels_slice():
