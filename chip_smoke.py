@@ -26,7 +26,9 @@ every model of the zoo goes through them.
    chunk and a typical chunk of layerwise inference, F = 128 and 256;
    GAT's weighted gather + segment sum (``ops/weighted_segment.py``) at a
    bench-shape GAT batch's three message sums, against the float64 sum
-   and timed beside the gather, multiply and K1 it replaces; the
+   and timed beside the gather, multiply and K1 it replaces, and the same
+   at a GATSkip batch's (4 heads of 128, of 47 in the last layer, fanouts
+   10,10,10), then one GATSkip train step's launch counts; the
    custom-VJP GAT attention block (``ops/gat_agg.py``) at that batch's
    mid hop, f32 against the CPU's autodiff path, then both paths timed in
    bf16; K3's gradient (ARMA's differentiable gather) against the float64
@@ -616,15 +618,17 @@ def phase_k2_k3_edge_cases(dev):
         log(f"  K3 edge case N={N} F={F} n={n}: f32, bf16 and int32 exact")
 
 
-def phase_weighted_gat(trainer, batch, dev, power):
-    """GAT's weighted gather + segment sum at each hop of a GAT bench batch
-    (bf16 rows of the layer's width, f32 weights; NaN weights and src ids
-    that are no row past count): against the float64 sum of the same
+def phase_weighted_gat(trainer, batch, dev, power, label="GAT"):
+    """The weighted gather + segment sum at each hop of a bench batch of a
+    GAT model (``label``): bf16 rows of each conv's heads x per-head width
+    (the zoo's GAT one head; GATSkip 4, whose last layer's 47-wide heads
+    straddle the 16-byte vectors), f32 weights a head; NaN weights and src
+    ids that are no row past count. Against the float64 sum of the same
     products by the f32 rule, its plain version too, three calls
     bit-identical; then timed beside the three-op chain it replaces
     (gather, broadcast multiply in bf16, K1) and its plain version, with
-    its bound (each real edge's row, 12 bytes of ids and weight, the f32
-    output). Returns the totals over the hops."""
+    its bound (each real edge's row, 8 bytes of ids and 4 of weight a
+    head, the f32 output). Returns the totals over the hops."""
     from salient_plusplus_tpu_torch.ops.segment import _real_rows
     from salient_plusplus_tpu_torch.ops.sorted_segment import (
         sorted_segment_sum_mxu)
@@ -636,10 +640,12 @@ def phase_weighted_gat(trainer, batch, dev, power):
     tot = dict(ms=0.0, chain_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     for i, e in enumerate(batch.edges):
         N, T = batch.layer_caps(i)
-        F = getattr(model, f"conv{i}").out_features
+        conv = getattr(model, f"conv{i}")
+        H, C = conv.heads, conv.features
+        F = H * C
         E, n = e.src.shape[0], int(e.count)
-        xs = torch.randn(N, 1, F, generator=g, device=dev).bfloat16()
-        att = torch.rand(E, 1, generator=g, device=dev)
+        xs = torch.randn(N, H, C, generator=g, device=dev).bfloat16()
+        att = torch.rand(E, H, generator=g, device=dev)
         att[n:] = float("nan")
         src = e.src.clone()
         src[n:] = 2**31 - 1
@@ -649,33 +655,65 @@ def phase_weighted_gat(trainer, batch, dev, power):
         v = (xs.index_select(0, rows).double()
              * att.double().nan_to_num()[:, :, None]).view(E, F)
         exact = exact_sum(v, ids.int(), T)
-        for label, out in (("kernel", got),
-                           ("plain", _weighted_segment_sum_plain(*args))):
-            check_f32(f"weighted sum layer{i} {label}", out.view(T, F),
-                      exact)
-        check_deterministic(f"weighted sum layer{i}",
-                            lambda: weighted_segment_sum(*args))
+        name = f"{label} weighted sum layer{i} ({H}x{C})"
+        for side, out in (("kernel", got),
+                          ("plain", _weighted_segment_sum_plain(*args))):
+            check_f32(f"{name} {side}", out.view(T, F), exact)
+        check_deterministic(name, lambda: weighted_segment_sum(*args))
         att0 = torch.where(att.isnan(), 0.0, att)
         ms = cuda_ms(lambda: weighted_segment_sum(*args))
         chain_ms = cuda_ms(lambda: sorted_segment_sum_mxu(
-            (xs.view(N, F).index_select(0, e.src)
-             * att0.to(torch.bfloat16)), e.dst, T))
+            (xs.index_select(0, e.src)
+             * att0.to(torch.bfloat16)[:, :, None]).view(E, F), e.dst, T))
         plain_ms = cuda_ms(lambda: _weighted_segment_sum_plain(*args))
-        bound_ms = ((n * F * 2 + 12 * n + 4 * T * F) / HBM_BYTES_PER_S
-                    * 1e3)
+        bound_ms = ((n * F * 2 + (8 + 4 * H) * n + 4 * T * F)
+                    / HBM_BYTES_PER_S * 1e3)
         for k, val in (("ms", ms), ("chain_ms", chain_ms),
                        ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
             tot[k] += val
-        log(f"  weighted sum layer{i} (E={E} real={n} N={N} T={T} F={F} "
-            f"bf16): kernel_ms={ms:.4f} chain_ms={chain_ms:.4f} "
+        log(f"  {name} (E={E} real={n} N={N} T={T} F={F} bf16): "
+            f"kernel_ms={ms:.4f} chain_ms={chain_ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_us={bound_ms * 1e3:.2f} "
             f"bound_share={bound_ms / ms:.3f} "
             f"vs_chain={ms / chain_ms:.3f}x  [{power}]")
-    log(f"  weighted sum per GAT step (3 calls): kernel_ms={tot['ms']:.4f} "
-        f"chain_ms={tot['chain_ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+    log(f"  {label} weighted sum per step (3 calls): "
+        f"kernel_ms={tot['ms']:.4f} chain_ms={tot['chain_ms']:.4f} "
+        f"plain_ms={tot['plain_ms']:.4f} "
         f"bound_us={tot['bound_ms'] * 1e3:.2f} "
         f"bound_share={tot['bound_ms'] / tot['ms']:.3f}  [{power}]")
     return tot
+
+
+def phase_gatskip_step(trainer, dev):
+    """One GATSkip train step on the card after a warm one, with every
+    kernel's launch counter set to 0 just before it and
+    ``ops.launch_counts()`` read just after: the weighted sum once a layer,
+    each launch multi-head; K3 once (the features); no K1 or K2."""
+    from salient_plusplus_tpu_torch import ops
+    from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
+
+    ts = trainer.train_sampler
+    ts.set_epoch(trainer.shuffler.get_idx(1), 1)
+    it = iter(ts)
+    feeder = DeviceFeeder(it, dev, depth=2)
+    trainer.run_step(next(feeder))
+    batch = next(feeder)
+    torch.cuda.synchronize(dev)
+    for w in _wrappers().values():
+        w.launches = 0
+    _wrappers()["weighted_segment_sum"].multihead = 0
+    loss = trainer.run_step(batch)
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    it.close()
+    log(f"  launches in one GATSkip train step: {counts} loss="
+        f"{float(loss):.4f}")
+    check(bool(torch.isfinite(loss)), "GATSkip step loss is not finite")
+    want = {"sorted_segment_sum": 0, "fused_gather_segment_sum": 0,
+            "gather_rows": 1, "weighted_segment_sum": 3,
+            "weighted_segment_sum.multihead": 3}
+    check(counts == want, f"GATSkip step launches {counts}: {want} "
+          f"expected")
 
 
 def _rel_err(a, b) -> float:
@@ -984,13 +1022,13 @@ def phase_resume(dev, V=100_000, C=32):
 
 
 # ---------------------------------------------------------------- phase 5
-def model_trainer(base, model_name, dev):
-    """A trainer of ``model_name`` at the bench config on ``base``'s
-    graph."""
+def model_trainer(base, model_name, dev, **over):
+    """A trainer of ``model_name`` at the bench config (``over`` changed)
+    on ``base``'s graph."""
     from salient_plusplus_tpu_torch.train.loop import Trainer
 
-    return Trainer(base.cfg.replace(model_name=model_name), base.graph,
-                   device=dev)
+    return Trainer(base.cfg.replace(model_name=model_name, **over),
+                   base.graph, device=dev)
 
 
 def bench_trainer(dev, num_nodes=1_000_000):
@@ -2560,7 +2598,8 @@ def phase_bench_runs(power, single, cold):
               and line["gsrc_fallback_windows"] is None,
               f"bench {label}: {line}")
         check(launches == {K1: 4 * steps, K2: steps, K3: steps + probes,
-                           "weighted_segment_sum": 0},
+                           "weighted_segment_sum": 0,
+                           "weighted_segment_sum.multihead": 0},
               f"bench {label}: launches {launches} in {steps} steps and "
               f"{probes} probe gathers; K1 4, K2 1, K3 1 a step expected")
 
@@ -2611,6 +2650,16 @@ def main() -> int:
     phase_gat_agg(batch, dev, power)
     phase_k3_grad(batch, dev)
     del batch, gat
+    # GATSkip's multi-head weighted sums at its published widths (4 heads
+    # of 128, 4 of 47 in the last layer) and fanouts, and the launches of
+    # one of its train steps
+    gs = model_trainer(trainer, "GATSkip", dev, hidden_features=128,
+                       train_fanouts=[10, 10, 10])
+    batch = bench_batch(gs, dev)
+    phase_weighted_gat(gs, batch, dev, power, label="GATSkip")
+    del batch
+    phase_gatskip_step(gs, dev)
+    del gs
     log(f"phase 3 kernel vs plain: {time.perf_counter() - t:.1f} s")
     # phase 4: the main paths through the driver CLI
     t = time.perf_counter()

@@ -71,7 +71,8 @@ PROBE_HOLD_CYCLES = 1 << 26
 # "approx": documented estimate (gather_rows_per_step)
 ROOFLINE_MODELS = {"SAGE": "exact", "SAGEClassic": "exact",
                    "GIN": "exact", "SAGEResInception": "exact",
-                   "JKNet": "exact", "GAT": "approx", "GCN": "exact"}
+                   "JKNet": "exact", "GAT": "approx", "GCN": "exact",
+                   "GATSkip": "approx"}
 
 
 def chip_state_verdict(frac, h2d_need_mbs, h2d_burst_mbs,
@@ -118,7 +119,8 @@ def gather_rows_per_step(spec, model_name, global_msg0, gat_custom):
     - frontier mode: full frontier + all fwd msgs + inner bwd mirrors;
     - GAT (approx): N + 4E per the autodiff attention path (msg gather +
       two thin logit gathers fwd, ~one gather + the d_xs scatter bwd), or
-      7 row-ops an edge with the custom VJP (``gat_custom``);
+      7 row-ops an edge with the custom VJP (``gat_custom``); GATSkip
+      (approx) as GAT's autodiff path;
     - GCN: frontier gather (N) + per hop the fwd msg gather and the bwd
       mirror gather (2E).
 
@@ -129,6 +131,8 @@ def gather_rows_per_step(spec, model_name, global_msg0, gat_custom):
     total_e = sum(spec.edge_caps)
     if model_name == "GAT":
         return spec.total_node_cap + (7 if gat_custom else 4) * total_e
+    if model_name == "GATSkip":
+        return spec.total_node_cap + 4 * total_e
     if model_name == "GCN":
         return spec.total_node_cap + 2 * total_e
     if global_msg0:

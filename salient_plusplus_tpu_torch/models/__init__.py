@@ -1,3 +1,3 @@
-from .modules import MODEL_REGISTRY, SAGE, make_model
+from .modules import MODEL_REGISTRY, MODELS, SAGE, make_model
 
-__all__ = ["MODEL_REGISTRY", "SAGE", "make_model"]
+__all__ = ["MODEL_REGISTRY", "MODELS", "SAGE", "make_model"]

@@ -9,7 +9,9 @@ row-gather kernel (K3), the layer core aggregates them through the
 no-mirror hop (the fused gather + segment-sum kernel, K2), and the chunk's
 rows are written into the next layer's embedding matrix.
 
-Served here: SAGE, SAGEClassic, GIN, JKNet, SAGEResInception, GAT and GCN.
+Served here: SAGE, SAGEClassic, GIN, JKNet, SAGEResInception, GAT, GCN
+and GATSkip (each layer's conv plus its skip projection of the chunk's own
+rows, the last conv's heads averaged, as its forward has them).
 BatchNorm layers run off the trained running statistics (the model is put
 in ``eval()`` mode). GAT's chunk hop has no mirror: its message sum is the
 sorted segment-sum kernel (K1); GCN's is K2, as every other model's. ARMA
@@ -27,12 +29,12 @@ from torch import nn
 from ..ops.segment import gather_rows
 from ..sampling.batch import BatchSpec, EdgeBlock
 from ..sampling.cpp import BatchBuffers, NativeSampler
-from .modules import MODEL_REGISTRY
+from .modules import MODELS
 
 # not served layerwise by the JAX package either: the trainer scores it
 # batchwise
 UNSERVED = ("ARMA",)
-SUPPORTED = tuple(m for m in MODEL_REGISTRY if m not in UNSERVED)
+SUPPORTED = tuple(m for m in MODELS if m not in UNSERVED)
 
 
 def _chunk_spec(rowptr: np.ndarray, chunk: int, align: int = 128) -> BatchSpec:
@@ -149,6 +151,16 @@ def _zoo(model_name, model, x_all, eng):
             def core(x, edge, n, conv=conv, last=i == L - 1):
                 h = conv(x, x[:n], edge, n)
                 return h if last else torch.relu(h)
+
+            emb = propagate(core, emb, conv.out_features)
+        return _finish(emb)
+
+    if model_name == "GATSkip":
+        for i, conv in enumerate(convs):
+            def core(x, edge, n, conv=conv, skip=getattr(model, f"skip{i}"),
+                     last=i == L - 1):
+                h = conv(x, x[:n], edge, n) + skip(x[:n])
+                return h if last else F.elu(h)
 
             emb = propagate(core, emb, conv.out_features)
         return _finish(emb)

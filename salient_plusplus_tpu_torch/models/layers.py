@@ -109,10 +109,13 @@ class SAGEConv(nn.Module):
 
 
 class GATConv(nn.Module):
-    """Graph attention conv, PyG GATConv semantics with concatenated heads,
-    no bias (as the zoo's GAT builds it) and ``add_self_loops=True``: on the
-    reference's bipartite hop every target also attends to itself (input
-    row i < T is target i under the prefix convention).
+    """Graph attention conv, PyG GATConv semantics with ``add_self_loops=
+    True``: on the reference's bipartite hop every target also attends to
+    itself (input row i < T is target i under the prefix convention). By
+    default the heads are concatenated and there is no bias, as the zoo's
+    GAT builds it; ``concat=False`` averages the heads (on the weighted
+    sum's f32 output, before the cast) and ``use_bias`` adds PyG's bias
+    (zeros at init) after the concatenation or the average.
 
     Default path (``ops/gat_agg.py::gat_attention_agg_autodiff``):
     attention logits gathered per edge, the self-inclusive softmax, the
@@ -120,17 +123,20 @@ class GATConv(nn.Module):
     (``ops/weighted_segment.py``: no [E, H·C] messages; its backward a
     masked gather and ``index_add_``) and the self term; autograd does the
     rest.
-    With ``SPTPU_GAT_CUSTOM_VJP=1`` and a hop that carries its src-sorted
-    mirror, the block with the hand-derived backward (``gat_attention_agg``)
-    runs instead, as in the JAX package. Under a profiler either block is
-    the span ``gat.attention``; the projections stay outside it."""
+    With ``SPTPU_GAT_CUSTOM_VJP=1``, concatenated heads and a hop that
+    carries its src-sorted mirror, the block with the hand-derived backward
+    (``gat_attention_agg``) runs instead, as in the JAX package. Under a
+    profiler either block is the span ``gat.attention``; the projections
+    stay outside it."""
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  negative_slope: float = 0.2,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 concat: bool = True, use_bias: bool = False):
         super().__init__()
         self.heads, self.features = heads, features
+        self.concat = concat
         self.negative_slope = negative_slope
         self.dtype = dtype
         self.lin_src = _dense(in_features, heads * features, False, dtype,
@@ -143,10 +149,12 @@ class GATConv(nn.Module):
         self.att_dst = nn.Parameter(
             torch.empty(1, heads, features).uniform_(-a, a,
                                                      generator=generator))
+        self.bias = (nn.Parameter(torch.zeros(self.out_features))
+                     if use_bias else None)
 
     @property
     def out_features(self) -> int:
-        return self.heads * self.features
+        return self.heads * self.features if self.concat else self.features
 
     def forward(self, x, x_target, edge: EdgeBlock, out_cap: int):
         H, C = self.heads, self.features
@@ -156,7 +164,8 @@ class GATConv(nn.Module):
         alpha_dst = (xt * self.att_dst.to(self.dtype)).sum(-1)   # [T, H]
         ns = self.negative_slope
         with span("gat.attention"):
-            if gat_custom_agg_enabled() and edge.msrc is not None:
+            if (self.concat and gat_custom_agg_enabled()
+                    and edge.msrc is not None):
                 out = gat_attention_agg(
                     out_cap, ns, xs, xt, alpha_src.float(),
                     alpha_dst.float(), edge.src, edge.dst, edge.count,
@@ -164,8 +173,11 @@ class GATConv(nn.Module):
             else:
                 out = gat_attention_agg_autodiff(
                     out_cap, ns, xs, xt, alpha_src, alpha_dst, edge.src,
-                    edge.dst, edge.count)
-        return out.reshape(-1, H * C).to(self.dtype)
+                    edge.dst, edge.count, mean_heads=not self.concat)
+        out = out.reshape(-1, self.out_features).to(self.dtype)
+        if self.bias is not None:
+            out = out + self.bias.to(self.dtype)
+        return out
 
 
 class GCNConv(nn.Module):

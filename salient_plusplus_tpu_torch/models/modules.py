@@ -1,7 +1,9 @@
 """The model zoo (counterpart of the JAX package's ``models/modules.py``).
 
 All eight models of the JAX package's zoo: SAGE, SAGEClassic, GIN, JKNet,
-SAGEResInception, GAT, GCN and ARMA.
+SAGEResInception, GAT, GCN and ARMA (``MODEL_REGISTRY``), and the port's
+own GATSkip, PyG's ogbn-products GAT; ``make_model`` builds any of them
+(``MODELS``).
 
 Call convention: ``model(x, batch, training=..., generator=...)`` (plus
 ``features=`` for the models whose layer 0 can read the table: SAGE,
@@ -21,9 +23,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..sampling.batch import PaddedBatch
+from ..utils.timing import span
 from .layers import (
-    ARMAConv, GATConv, GCNConv, GINConv, MLP, MaskedBatchNorm, SAGEConv,
-    _lecun_dense, dropout,
+    ARMAConv, Dense, GATConv, GCNConv, GINConv, MLP, MaskedBatchNorm,
+    SAGEConv, _lecun_dense, dropout,
 )
 
 
@@ -246,6 +249,53 @@ class GAT(_GNNBase):
         return self._final(x, batch)
 
 
+class GATSkip(_GNNBase):
+    """PyG's ogbn-products GAT (``examples/ogbn_products_gat.py``; the OGB
+    leaderboard's "GAT (NeighborSampling)", 751,574 parameters at 100
+    features, hidden 128 and 47 classes): ``heads`` heads a conv with
+    bias, concatenated (heads x hidden) below the last layer and averaged
+    in it, and a Linear skip with bias from the targets' rows:
+
+        x = GATConv_i((x, x[:T])) + skip_i(x[:T])
+        x = dropout(elu(x))                     (not after the last layer)
+
+    ``hidden_features`` is the width of one head. Under a profiler each
+    skip projection and its add is the span ``gat.skip``."""
+
+    heads = 4
+
+    def __init__(self, *args, generator: Optional[torch.Generator] = None,
+                 **kw):
+        super().__init__(*args, **kw)
+        L, Hd = self.num_layers, self.heads
+        wide = Hd * self.hidden_features
+        for i in range(L):
+            fin = self.in_features if i == 0 else wide
+            last = i == L - 1
+            self.add_module(f"conv{i}", GATConv(
+                fin, self.out_features if last else self.hidden_features,
+                heads=Hd, dtype=self.dtype, generator=generator,
+                concat=not last, use_bias=True))
+            self.add_module(f"skip{i}", Dense(
+                fin, self.out_features if last else wide, True, self.dtype,
+                generator))
+
+    def forward(self, x, batch: PaddedBatch, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x.to(self.dtype)
+        L = _check_layers(self, batch)
+        for i in range(L):
+            _, out_cap = batch.layer_caps(i)
+            x_target = x[:out_cap]
+            h = getattr(self, f"conv{i}")(x, x_target, batch.edges[i],
+                                          out_cap)
+            with span("gat.skip"):
+                x = h + getattr(self, f"skip{i}")(x_target)
+            if i != L - 1:
+                x = dropout(F.elu(x), self.dropout, training, generator)
+        return self._final(x, batch)
+
+
 class GCN(_GNNBase):
     """GCN with normalize=False, bias-free convs and masked BN between
     layers. As in the reference (which passes the full x), each conv's
@@ -312,6 +362,8 @@ class ARMA(_GNNBase):
 MODEL_REGISTRY = {"SAGE": SAGE, "SAGEClassic": SAGEClassic, "GIN": GIN,
                   "JKNet": JKNet, "SAGEResInception": SAGEResInception,
                   "GAT": GAT, "GCN": GCN, "ARMA": ARMA}
+# and the port's own, which the JAX package's zoo does not have
+MODELS = {**MODEL_REGISTRY, "GATSkip": GATSkip}
 
 
 def make_model(name: str, in_features: int, hidden_features: int,
@@ -320,8 +372,8 @@ def make_model(name: str, in_features: int, hidden_features: int,
                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build a model of the zoo on the CPU with float32 parameters;
     ``generator`` draws the initial weights."""
-    if name not in MODEL_REGISTRY:
+    if name not in MODELS:
         raise ValueError(f"unknown model {name!r}")
-    return MODEL_REGISTRY[name](in_features, hidden_features, out_features,
-                                num_layers, dropout=dropout, dtype=dtype,
-                                generator=generator)
+    return MODELS[name](in_features, hidden_features, out_features,
+                        num_layers, dropout=dropout, dtype=dtype,
+                        generator=generator)

@@ -136,11 +136,14 @@ def gat_attention_agg(out_cap: int, negative_slope: float, xs, xt, a_src,
 
 
 def gat_attention_agg_autodiff(out_cap: int, negative_slope: float, xs, xt,
-                               a_src, a_dst, src, dst, count):
+                               a_src, a_dst, src, dst, count,
+                               mean_heads: bool = False):
     """The function of ``gat_attention_agg``, differentiated by autograd
     (no mirror needed). The logits take ``a_src``'s dtype, the softmax runs
     in f32, the weighted sum multiplies the f32 attention into each row in
-    f32; returns [T, H, C] in xs.dtype."""
+    f32; returns [T, H, C] in xs.dtype. ``mean_heads`` (PyG's
+    ``concat=False``): the self term is added and the heads averaged on the
+    weighted sum's f32 output, then cast once; returns [T, C]."""
     T = out_cap
     ns = negative_slope
     # pad dst is out_cap (or above it in a tight bucket): it reads a real
@@ -151,4 +154,6 @@ def gat_attention_agg_autodiff(out_cap: int, negative_slope: float, xs, xt,
     att, self_att = segment_softmax_self(logits.float(), dst, count, T,
                                          self_logit.float())
     out = weighted_segment_sum_op(xs, att, src, dst, count, T)
+    if mean_heads:
+        return (out + xt.float() * self_att[:, :, None]).mean(1).to(xs.dtype)
     return out.to(xs.dtype) + xt * self_att.to(xs.dtype)[:, :, None]

@@ -14,7 +14,13 @@ segment_common.cuh``, with an f32 weight an edge and head); on a CPU tensor
 ``weighted_segment_sum_op`` is differentiable. Its backward does what
 autograd did through the three steps: the output gradient gathered by dst
 and masked, ``d_att`` its dot with ``xs[src]`` per head, ``d_xs`` the
-weighted rows summed over src by ``index_add_``.
+weighted rows summed over src by ``index_add_``. Under a profiler it is the
+span ``gat.attention.backward`` (on autograd's thread, as ``step.backward``
+is).
+
+``weighted_segment_sum.launches`` counts every launch of the kernel,
+``weighted_segment_sum.multihead`` those of them with more than one head
+(``weighted_slice_pass<..., true>``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import ctypes
 import torch
 
 from ..native.build import launch_kernel
+from ..utils.timing import span
 from .pallas_aggregate import _DTYPE_CODE, _split_scratch
 from .segment import _real_rows
 
@@ -95,10 +102,12 @@ def weighted_segment_sum(xs: torch.Tensor, att: torch.Tensor,
                   src.shape[0], num_segments, H, C, out.data_ptr(),
                   scratch.data_ptr(), scratch.numel())
     weighted_segment_sum.launches += 1
+    weighted_segment_sum.multihead += int(H > 1)
     return out
 
 
 weighted_segment_sum.launches = 0
+weighted_segment_sum.multihead = 0
 
 
 class _WeightedSegmentSum(torch.autograd.Function):
@@ -110,19 +119,21 @@ class _WeightedSegmentSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out):
-        xs, att, src, dst, count = ctx.saved_tensors
-        T = ctx.num_segments
-        ids, rows = _real_rows(src, dst, count, T)
-        # the output gradient of each real edge's target (0 for the rest)
-        g = torch.cat([d_out.to(xs.dtype), d_out.new_zeros(
-            (1,) + d_out.shape[1:], dtype=xs.dtype)]).index_select(0, ids)
-        d_att = d_xs = None
-        if ctx.needs_input_grad[1]:
-            d_att = (g * xs.index_select(0, rows)).sum(
-                -1, dtype=torch.float32)
-        if ctx.needs_input_grad[0]:
-            d_xs = torch.zeros_like(xs).index_add_(
-                0, rows, g * att.to(xs.dtype)[:, :, None])
+        with span("gat.attention.backward"):
+            xs, att, src, dst, count = ctx.saved_tensors
+            T = ctx.num_segments
+            ids, rows = _real_rows(src, dst, count, T)
+            # the output gradient of each real edge's target (0 for the
+            # rest)
+            g = torch.cat([d_out.to(xs.dtype), d_out.new_zeros(
+                (1,) + d_out.shape[1:], dtype=xs.dtype)]).index_select(0, ids)
+            d_att = d_xs = None
+            if ctx.needs_input_grad[1]:
+                d_att = (g * xs.index_select(0, rows)).sum(
+                    -1, dtype=torch.float32)
+            if ctx.needs_input_grad[0]:
+                d_xs = torch.zeros_like(xs).index_add_(
+                    0, rows, g * att.to(xs.dtype)[:, :, None])
         return d_xs, d_att, None, None, None, None
 
 

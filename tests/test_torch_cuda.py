@@ -484,6 +484,10 @@ WEIGHTED_CASES = [
     # one segment holds every real edge, over ~600 slices
     (40_000, 64, 5000, 39_000, 1, 256, "one"),
     (512, 128, 300, 0, 1, 256, "uniform"),       # count 0
+    # GATSkip's hidden layers: 4 heads of 128, 1 KB bf16 rows (vectors)
+    (4096, 512, 2000, 3900, 4, 128, "uniform"),
+    # its last layer: 4 heads of 47, heads straddle the 16-byte vectors
+    (2048, 300, 1000, 1800, 4, 47, "hub"),
 ]
 
 
@@ -601,6 +605,67 @@ def test_gat_forward_on_card_one_weighted_launch_a_layer(cuda_device):
             assert W.weighted_segment_sum.launches == ws + 3
     torch.testing.assert_close(out[str(cuda_device)], out["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
+    """GATSkip's training forward and backward on the card (4 heads, the
+    multi-head weighted sum once a layer forward) against the plain float32
+    reference (``tests/reference_gatskip.py``) on the card, dropout 0: the
+    log-probabilities, the loss and every parameter's gradient, at the CPU
+    test's tolerances (``test_torch_gatskip.py``: float32 summation order;
+    bfloat16 rounding)."""
+    from salient_plusplus_tpu_torch.data import synthetic
+    from salient_plusplus_tpu_torch.models import make_model
+    from salient_plusplus_tpu_torch.sampling.batch import BatchSpec
+    from salient_plusplus_tpu_torch.sampling.cpp import NativeSampler
+    from salient_plusplus_tpu_torch.train.step import (decode_batch,
+                                                       gather_features)
+    from tests import reference_gatskip as ref
+    from tests.test_torch_gatskip import TOLERANCE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = synthetic.planted_partition("cuda-gatskip", num_nodes=3000,
+                                    num_classes=6, avg_degree=10,
+                                    num_features=24, seed=4)
+    b = decode_batch(NativeSampler(np.asarray(g.rowptr),
+                                   np.asarray(g.col)).sample(
+        BatchSpec.worst_case(128, [6, 4, 3]),
+        np.sort(g.split_idx["train"][:128]), rng_seed=2,
+        y_global=np.asarray(g.y, np.int32)).to(cuda_device))
+    model = make_model("GATSkip", 24, 10, 6, 3, dropout=0.0, dtype=dtype,
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(1)
+        for i in range(3):
+            for k in ("conv", "skip"):
+                getattr(model, f"{k}{i}").bias.uniform_(-0.5, 0.5,
+                                                        generator=gen)
+    model.to(cuda_device).train()
+    feats = torch.from_numpy(np.asarray(g.x, np.float32)).to(cuda_device)
+    ws, mh = W.weighted_segment_sum.launches, W.weighted_segment_sum.multihead
+    logp = model(gather_features(feats, b), b, training=True)
+    ns = int(b.seed_count)
+    loss = torch.nn.functional.nll_loss(logp[:ns], b.y[:ns].long())
+    loss.backward()
+    torch.cuda.synchronize()
+    assert W.weighted_segment_sum.launches == ws + 3
+    assert W.weighted_segment_sum.multihead == mh + 3
+    ls = [int(v) for v in b.level_sizes]
+    hops = [(e.src[:int(e.count)].long(), e.dst[:int(e.count)].long())
+            for e in b.edges]
+    want_logp, want_loss, want = ref.loss_and_grads(
+        {k: p.detach() for k, p in model.named_parameters()},
+        feats.index_select(0, b.n_id[:ls[3]].long()), hops,
+        [ls[2], ls[1], ls[0]], b.y[:ns].long())
+    tol = TOLERANCE[dtype]
+    assert float((logp[:ns].detach() - want_logp).abs().max()) < tol["logp"]
+    assert abs(float(loss.detach()) - float(want_loss)) < tol["loss"]
+    for k, p in model.named_parameters():
+        rel = float((p.grad - want[k]).norm() / want[k].norm().clamp_min(
+            1e-12))
+        assert rel < tol["grad"], (k, rel)
 
 
 def _cold_trainer(device, **kw):
