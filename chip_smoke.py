@@ -628,16 +628,25 @@ def phase_weighted_gat(trainer, batch, dev, power, label="GAT"):
     bit-identical; then timed beside the three-op chain it replaces
     (gather, broadcast multiply in bf16, K1) and its plain version, with
     its bound (each real edge's row, 8 bytes of ids and 4 of weight a
-    head, the f32 output). Returns the totals over the hops."""
+    head, the f32 output). Its backward (``weighted_segment_sum_backward``,
+    the kernels of ``csrc/weighted_segment_grad.cu``) the same way: against
+    the plain backward in f32 on the kernels' inputs by summation order
+    (and bf16 d_xs's final rounding), three calls bit-identical, timed
+    beside the plain backward (gathers and a bf16 ``index_add_``), with
+    its bound (each real edge's xs row and g row, each target's g row, 24
+    bytes of ids and 8 a head of weight and d_att a real edge, the bf16
+    d_xs). Returns the totals over the hops."""
     from salient_plusplus_tpu_torch.ops.segment import _real_rows
     from salient_plusplus_tpu_torch.ops.sorted_segment import (
         sorted_segment_sum_mxu)
     from salient_plusplus_tpu_torch.ops.weighted_segment import (
-        _weighted_segment_sum_plain, weighted_segment_sum)
+        _weighted_segment_sum_backward_plain, _weighted_segment_sum_plain,
+        weighted_segment_sum, weighted_segment_sum_backward)
 
     model = trainer.state.model
     g = torch.Generator(device=dev).manual_seed(7)
-    tot = dict(ms=0.0, chain_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, chain_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               bwd_ms=0.0, bwd_plain_ms=0.0, bwd_bound_ms=0.0)
     for i, e in enumerate(batch.edges):
         N, T = batch.layer_caps(i)
         conv = getattr(model, f"conv{i}")
@@ -668,19 +677,55 @@ def phase_weighted_gat(trainer, batch, dev, power, label="GAT"):
         plain_ms = cuda_ms(lambda: _weighted_segment_sum_plain(*args))
         bound_ms = ((n * F * 2 + (8 + 4 * H) * n + 4 * T * F)
                     / HBM_BYTES_PER_S * 1e3)
+        d_out = torch.randn(T, H, C, generator=g, device=dev)
+        bwd = weighted_segment_sum_backward(d_out, *args)
+        g32 = d_out.bfloat16().float()
+        ref = _weighted_segment_sum_backward_plain(
+            g32, xs.float(), att0, src, e.dst, e.count, T)
+        mag = _weighted_segment_sum_backward_plain(
+            g32.abs(), xs.float().abs(), att0.abs(), src, e.dst, e.count, T)
+        for part, got, want, m in (("d_xs", bwd[0], ref[0], mag[0]),
+                                   ("d_att", bwd[1], ref[1], mag[1])):
+            err = (got.float() - want).abs()
+            tol = 1e-4 + 1e-5 * m
+            if part == "d_xs":
+                tol = tol + 2.0**-8 * want.abs()
+            check(bool((err <= tol).all()), f"{name} backward {part}: max "
+                  f"error {float(err.max())} against the plain f32 one")
+        check_deterministic(f"{name} backward", lambda: torch.cat([
+            t.float().flatten()
+            for t in weighted_segment_sum_backward(d_out, *args)]))
+        del bwd, ref, mag
+        bwd_ms = cuda_ms(lambda: weighted_segment_sum_backward(d_out, *args))
+        bwd_plain_ms = cuda_ms(lambda: _weighted_segment_sum_backward_plain(
+            d_out, xs, att0, src, e.dst, e.count, T))
+        bwd_bound_ms = ((2 * n * F * 2 + T * F * 2 + (24 + 8 * H) * n
+                         + 2 * N * F) / HBM_BYTES_PER_S * 1e3)
         for k, val in (("ms", ms), ("chain_ms", chain_ms),
-                       ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                       ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                       ("bwd_ms", bwd_ms), ("bwd_plain_ms", bwd_plain_ms),
+                       ("bwd_bound_ms", bwd_bound_ms)):
             tot[k] += val
         log(f"  {name} (E={E} real={n} N={N} T={T} F={F} bf16): "
             f"kernel_ms={ms:.4f} chain_ms={chain_ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_us={bound_ms * 1e3:.2f} "
             f"bound_share={bound_ms / ms:.3f} "
             f"vs_chain={ms / chain_ms:.3f}x  [{power}]")
+        log(f"  {name} backward: kernel_ms={bwd_ms:.4f} "
+            f"plain_ms={bwd_plain_ms:.4f} "
+            f"bound_us={bwd_bound_ms * 1e3:.2f} "
+            f"bound_share={bwd_bound_ms / bwd_ms:.3f} "
+            f"vs_plain={bwd_ms / bwd_plain_ms:.3f}x  [{power}]")
     log(f"  {label} weighted sum per step (3 calls): "
         f"kernel_ms={tot['ms']:.4f} chain_ms={tot['chain_ms']:.4f} "
         f"plain_ms={tot['plain_ms']:.4f} "
         f"bound_us={tot['bound_ms'] * 1e3:.2f} "
         f"bound_share={tot['bound_ms'] / tot['ms']:.3f}  [{power}]")
+    log(f"  {label} weighted sum backward per step (3 calls): "
+        f"kernel_ms={tot['bwd_ms']:.4f} "
+        f"plain_ms={tot['bwd_plain_ms']:.4f} "
+        f"bound_us={tot['bwd_bound_ms'] * 1e3:.2f} "
+        f"bound_share={tot['bwd_bound_ms'] / tot['bwd_ms']:.3f}  [{power}]")
     return tot
 
 
@@ -688,7 +733,8 @@ def phase_gatskip_step(trainer, dev):
     """One GATSkip train step on the card after a warm one, with every
     kernel's launch counter set to 0 just before it and
     ``ops.launch_counts()`` read just after: the weighted sum once a layer,
-    each launch multi-head; K3 once (the features); no K1 or K2."""
+    each launch multi-head, and its kernel backward once a layer; K3 once
+    (the features); no K1 or K2."""
     from salient_plusplus_tpu_torch import ops
     from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
 
@@ -702,6 +748,7 @@ def phase_gatskip_step(trainer, dev):
     for w in _wrappers().values():
         w.launches = 0
     _wrappers()["weighted_segment_sum"].multihead = 0
+    _wrappers()["weighted_segment_sum"].backward = 0
     loss = trainer.run_step(batch)
     torch.cuda.synchronize(dev)
     counts = ops.launch_counts()
@@ -711,7 +758,8 @@ def phase_gatskip_step(trainer, dev):
     check(bool(torch.isfinite(loss)), "GATSkip step loss is not finite")
     want = {"sorted_segment_sum": 0, "fused_gather_segment_sum": 0,
             "gather_rows": 1, "weighted_segment_sum": 3,
-            "weighted_segment_sum.multihead": 3}
+            "weighted_segment_sum.multihead": 3,
+            "weighted_segment_sum.backward": 3}
     check(counts == want, f"GATSkip step launches {counts}: {want} "
           f"expected")
 
@@ -2599,7 +2647,8 @@ def phase_bench_runs(power, single, cold):
               f"bench {label}: {line}")
         check(launches == {K1: 4 * steps, K2: steps, K3: steps + probes,
                            "weighted_segment_sum": 0,
-                           "weighted_segment_sum.multihead": 0},
+                           "weighted_segment_sum.multihead": 0,
+                           "weighted_segment_sum.backward": 0},
               f"bench {label}: launches {launches} in {steps} steps and "
               f"{probes} probe gathers; K1 4, K2 1, K3 1 a step expected")
 

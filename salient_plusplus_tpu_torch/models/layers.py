@@ -120,9 +120,8 @@ class GATConv(nn.Module):
     Default path (``ops/gat_agg.py::gat_attention_agg_autodiff``):
     attention logits gathered per edge, the self-inclusive softmax, the
     weighted message sum by the fused weighted gather + segment sum
-    (``ops/weighted_segment.py``: no [E, H·C] messages; its backward a
-    masked gather and ``index_add_``) and the self term; autograd does the
-    rest.
+    (``ops/weighted_segment.py``: no [E, H·C] messages, nor in its
+    backward's two kernels) and the self term; autograd does the rest.
     With ``SPTPU_GAT_CUSTOM_VJP=1``, concatenated heads and a hop that
     carries its src-sorted mirror, the block with the hand-derived backward
     (``gat_attention_agg``) runs instead, as in the JAX package. Under a

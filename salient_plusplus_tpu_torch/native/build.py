@@ -35,7 +35,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SAMPLER_SRC = os.path.join(_PKG_DIR, "native", "sampler.cpp")
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 KERNELS = ("sorted_segment_sum", "gather_rows", "fused_gather_segment_sum",
-           "weighted_segment_sum")
+           "weighted_segment_sum", "weighted_segment_grad")
 # one lock per library, so the sampler and the kernels build in parallel
 _locks = {stem: threading.Lock()
           for stem in ("sptpu", *(f"sptpu_{k}" for k in KERNELS))}

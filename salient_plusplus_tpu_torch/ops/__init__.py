@@ -22,10 +22,11 @@ __all__ = [
 def launch_counts() -> dict:
     """Each CUDA kernel's launches so far in this process, by wrapper
     (K1, K2, K3 and GAT's weighted sum, and of the weighted sum's the
-    multi-head ones apart); the plain versions that run on the CPU count
-    none."""
+    multi-head ones apart, and its backward's calls); the plain versions
+    that run on the CPU count none."""
     return {"sorted_segment_sum": sorted_segment_sum_mxu.launches,
             "fused_gather_segment_sum": fused_gather_segment_sum.launches,
             "gather_rows": pallas_gather_rows.launches,
             "weighted_segment_sum": weighted_segment_sum.launches,
-            "weighted_segment_sum.multihead": weighted_segment_sum.multihead}
+            "weighted_segment_sum.multihead": weighted_segment_sum.multihead,
+            "weighted_segment_sum.backward": weighted_segment_sum.backward}

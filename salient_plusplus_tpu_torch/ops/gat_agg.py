@@ -24,11 +24,13 @@ Pallas kernels). It needs the hop's src-sorted mirror (``msrc``/``mdst``).
 
 ``gat_attention_agg_autodiff`` is the same block as autograd
 differentiates it (GATConv's default path): the same fused weighted sum
-forward, whose backward gathers the output gradient by dst and sums the
-weighted rows over unsorted src with ``index_add_``. The custom block is
-off by default, as in the JAX package, whose TPU measurement found its
-backward slower than the autodiff one: ``SPTPU_GAT_CUSTOM_VJP=1`` turns
-it on.
+forward, whose backward is two hand-written kernels on the card
+(``weighted_segment_sum_backward``: the attention's gradient in dst
+order, the rows' gradient summed by src over a stable device sort, nothing
+[E, H·C]-wide written) and the gather and ``index_add_`` on the CPU. The
+custom block is off by default, as in the JAX package, whose TPU
+measurement found its backward slower than the autodiff one:
+``SPTPU_GAT_CUSTOM_VJP=1`` turns it on.
 """
 
 from __future__ import annotations

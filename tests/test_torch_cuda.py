@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 sorted segment sum, K2 fused gather +
-segment sum, K3 row gather, GAT's weighted gather + segment sum) against
-their plain versions, on the card.
+segment sum, K3 row gather, GAT's weighted gather + segment sum and its
+backward) against their plain versions, on the card.
 
 Run on a machine with an NVIDIA GPU:
 
@@ -607,6 +607,151 @@ def test_gat_forward_on_card_one_weighted_launch_a_layer(cuda_device):
                                rtol=1e-4)
 
 
+# The weighted sum's backward: (E, T, N, n_real, H, C, kind, hub src
+# edges), kind as in _real_ids; pads at and above T sit between n_real and
+# count, junk past count
+GRAD_CASES = [
+    (4096, 512, 2000, 3900, 4, 128, "uniform", 0),  # GATSkip's hidden
+    (2048, 300, 1000, 1800, 4, 47, "hub", 0),       # its last layer
+    (4096, 512, 2000, 3900, 1, 256, "uniform", 0),  # the zoo's GAT
+    (512, 128, 300, 0, 4, 128, "uniform", 0),       # count 0
+    # one source holds 10k edges, over ~160 slices of the src order
+    (16_384, 2000, 5000, 16_000, 4, 128, "uniform", 10_000),
+    (16_384, 2000, 5000, 16_000, 1, 256, "hub", 10_000),
+]
+
+
+def _grad_case(E, T, N, n_real, H, C, kind, hub, dtype, device, seed=0):
+    """``_weighted_case``'s inputs with up to 37 pads (dst T and above,
+    sorted, src ids that are no row, NaN weights) between the real edges
+    and count, ``hub`` real edges from source 7, and an output gradient
+    [T, H, C] f32."""
+    xs, att, src, dst, _ = _weighted_case(E, T, N, n_real, H, C, kind,
+                                          dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    pads = min(E - n_real, 37)
+    dst[n_real:n_real + pads] = torch.from_numpy(np.sort(
+        rng.integers(T, T + 3, pads)).astype(np.int32)).to(device)
+    if hub:
+        src[torch.from_numpy(rng.choice(n_real, hub, replace=False)).to(
+            device)] = 7
+    d_out = torch.from_numpy(rng.standard_normal((T, H, C)).astype(
+        np.float32)).to(device)
+    cnt = torch.tensor(n_real + pads, dtype=torch.int32, device=device)
+    return d_out, xs, att, src, dst, cnt
+
+
+def _grad_refs(d_out, xs, att, src, dst, cnt, T):
+    """The plain backward in f32 on the card, on the inputs as the kernels
+    read them (the output gradient rounded to xs's type; pads weigh 0),
+    and the same on absolute values: (d_xs, d_att) and their sums of
+    |terms|."""
+    a = att.nan_to_num()
+    g = d_out.to(xs.dtype).float()
+    ref = W._weighted_segment_sum_backward_plain(g, xs.float(), a, src, dst,
+                                                 cnt, T)
+    mag = W._weighted_segment_sum_backward_plain(g.abs(), xs.float().abs(),
+                                                 a.abs(), src, dst, cnt, T)
+    return ref, mag
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_weighted_backward_matches_plain(cuda_device, case, dtype):
+    """The kernel backward against the plain one in f32 on the same card
+    tensors: the products are the same f32 numbers, so d_att and d_xs
+    differ by summation order only (1e-4 + 1e-5 of the sum of |terms|),
+    and bf16 d_xs also by its one final rounding (2^-8 relative). Dropped
+    edges get d_att 0, rows no real edge reaches d_xs 0; one call a
+    backward, no host sync, two calls bit-identical."""
+    E, T, N, n_real, H, C, kind, hub = case
+    args = _grad_case(*case, dtype, cuda_device)
+    b0 = W.weighted_segment_sum.backward
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d_xs, d_att = W.weighted_segment_sum_backward(*args, T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert W.weighted_segment_sum.backward == b0 + 1
+    assert d_xs.dtype == dtype and d_xs.shape == (N, H, C)
+    assert d_att.dtype == torch.float32 and d_att.shape == (E, H)
+    (ref_xs, ref_att), (mag_xs, mag_att) = _grad_refs(*args, T)
+    err = (d_att - ref_att).abs()
+    assert bool((err <= 1e-4 + 1e-5 * mag_att).all()), float(err.max())
+    err = (d_xs.float() - ref_xs).abs()
+    tol = 1e-4 + 1e-5 * mag_xs
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * ref_xs.abs()
+    assert bool((err <= tol).all()), float(err.max())
+    cnt = int(args[-1])
+    real = (torch.arange(E, device=cuda_device) < cnt) & (args[4] < T)
+    assert bool((d_att[~real] == 0).all())
+    reached = torch.zeros(N, dtype=torch.bool, device=cuda_device)
+    reached[args[3][real].long()] = True
+    assert bool((d_xs[~reached] == 0).all())
+    again = W.weighted_segment_sum_backward(*args, T)
+    assert torch.equal(again[0], d_xs) and torch.equal(again[1], d_att)
+
+
+def test_weighted_backward_one_gradient(cuda_device):
+    """Either gradient alone is the same as from the call that takes both."""
+    args = _grad_case(*GRAD_CASES[1], torch.bfloat16, cuda_device)
+    both = W.weighted_segment_sum_backward(*args, 300)
+    only_xs = W.weighted_segment_sum_backward(*args, 300, need_att=False)
+    only_att = W.weighted_segment_sum_backward(*args, 300, need_xs=False)
+    assert only_xs[1] is None and torch.equal(only_xs[0], both[0])
+    assert only_att[0] is None and torch.equal(only_att[1], both[1])
+
+
+def test_weighted_backward_rejects_bad_inputs(cuda_device):
+    d_out = torch.zeros(2, 1, 4, device=cuda_device)
+    xs = torch.zeros(8, 1, 4, device=cuda_device)
+    att = torch.zeros(8, 1, device=cuda_device)
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    bwd = W.weighted_segment_sum_backward
+    with pytest.raises(TypeError):
+        bwd(d_out, xs, att.bfloat16(), i32, i32, 8, 2)
+    with pytest.raises(TypeError):
+        bwd(d_out, xs, att, i32.long(), i32, 8, 2)
+    with pytest.raises(TypeError):
+        bwd(d_out, xs.half(), att, i32, i32, 8, 2)
+    with pytest.raises(TypeError):
+        bwd(d_out.int(), xs, att, i32, i32, 8, 2)
+    with pytest.raises(ValueError):
+        bwd(d_out, xs, att[:4], i32, i32, 8, 2)
+    with pytest.raises(ValueError):
+        bwd(d_out[:1], xs, att, i32, i32, 8, 2)
+    with pytest.raises(ValueError):
+        bwd(d_out.cpu(), xs, att, i32, i32, 8, 2)
+
+
+def test_weighted_backward_writes_nothing_edge_wide(cuda_device):
+    """At E = 2M and 4 heads of 128 (bf16), the backward's rise of
+    ``max_memory_allocated`` stays under one [E, H * C] bf16 tensor."""
+    E, T, N, H, C = 2_000_000, 100_000, 200_000, 4, 128
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    dst = torch.sort(torch.randint(0, T, (E,), generator=g,
+                                   device=cuda_device, dtype=torch.int32))[0]
+    src = torch.randint(0, N, (E,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    xs = torch.randn(N, H, C, generator=g, device=cuda_device).bfloat16()
+    att = torch.rand(E, H, generator=g, device=cuda_device)
+    d_out = torch.randn(T, H, C, generator=g, device=cuda_device)
+    cnt = torch.tensor(E, dtype=torch.int32, device=cuda_device)
+    W.weighted_segment_sum_backward(d_out, xs, att, src, dst, cnt, T)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = W.weighted_segment_sum_backward(d_out, xs, att, src, dst, cnt, T)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert out[0].shape == (N, H, C)
+    assert rise < E * H * C * 2, rise
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
@@ -645,6 +790,7 @@ def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
     model.to(cuda_device).train()
     feats = torch.from_numpy(np.asarray(g.x, np.float32)).to(cuda_device)
     ws, mh = W.weighted_segment_sum.launches, W.weighted_segment_sum.multihead
+    wb = W.weighted_segment_sum.backward
     logp = model(gather_features(feats, b), b, training=True)
     ns = int(b.seed_count)
     loss = torch.nn.functional.nll_loss(logp[:ns], b.y[:ns].long())
@@ -652,6 +798,7 @@ def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
     torch.cuda.synchronize()
     assert W.weighted_segment_sum.launches == ws + 3
     assert W.weighted_segment_sum.multihead == mh + 3
+    assert W.weighted_segment_sum.backward == wb + 3
     ls = [int(v) for v in b.level_sizes]
     hops = [(e.src[:int(e.count)].long(), e.dst[:int(e.count)].long())
             for e in b.edges]

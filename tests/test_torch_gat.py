@@ -332,7 +332,10 @@ def test_gatconv_custom_vjp_path_matches_default(monkeypatch):
 # N, n_real, H, C, pads above T)
 WEIGHTED_CASES = ([(*c, 0) for c in AGG_CASES]
                   + [(512, 64, 256, 400, 1, 16, 7),
-                     (768, 96, 200, 500, 2, 12, 3)])
+                     (768, 96, 200, 500, 2, 12, 3),
+                     # GATSkip's last layer in small: 4 heads of 7, F = 28
+                     # not a multiple of 8
+                     (640, 80, 300, 560, 4, 7, 5)])
 
 
 def _weighted_inputs(E, T, N, n_real, H, C, above):
@@ -412,3 +415,29 @@ def test_weighted_segment_sum_gradients_match_three_ops(case):
     np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
     for name, a, b in zip(("xs", "att"), grads, ref_grads):
         np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+def test_src_order_sorts_real_edges_stably_pads_last(case):
+    """The backward's src order: every real edge once, keys its src and
+    nondecreasing, ties in edge order, the dropped edges (past count, with
+    src ids that are no row; dst at or above T) last with key N."""
+    E, T, N, n_real, H, C, above = case
+    (src, dst, _, _), _, _ = _weighted_inputs(*case)
+    rng = np.random.default_rng(E + 1)
+    src, dst = src.copy(), dst.copy()
+    src[n_real:] = 2**31 - 1
+    dst[n_real:] = rng.integers(0, T, E - n_real)
+    keys, perm = tws._src_order(torch.from_numpy(src), torch.from_numpy(dst),
+                                torch.tensor(n_real, dtype=torch.int32), T, N)
+    keys, perm = keys.numpy(), perm.numpy()
+    real = (np.arange(E) < n_real) & (dst < T)
+    assert keys.dtype == np.int32 and perm.dtype == np.int64
+    assert sorted(perm.tolist()) == list(range(E))
+    k = int(real.sum())
+    assert np.array_equal(np.sort(perm[:k]), np.flatnonzero(real))
+    assert np.array_equal(keys[:k], src[perm[:k]])
+    assert (keys[k:] == N).all()
+    assert (np.diff(keys.astype(np.int64)) >= 0).all()
+    ties = keys[1:] == keys[:-1]
+    assert (perm[1:][ties] > perm[:-1][ties]).all()

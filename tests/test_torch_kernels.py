@@ -173,9 +173,10 @@ def test_new_wrappers_refuse_other_devices():
 
 
 def test_segment_kernels_hash_their_shared_header(monkeypatch):
-    """K1, K2 and GAT's weighted sum include csrc/segment_common.cuh: the
-    header is on nvcc's include path and joins each library's hash, so an
-    edited header rebuilds all three (nothing is compiled here)."""
+    """K1, K2 and GAT's weighted sum and its gradients include
+    csrc/segment_common.cuh: the header is on nvcc's include path and joins
+    each library's hash, so an edited header rebuilds all four (nothing is
+    compiled here)."""
     from salient_plusplus_tpu_torch.native import build
 
     seen = {}
@@ -183,7 +184,7 @@ def test_segment_kernels_hash_their_shared_header(monkeypatch):
     monkeypatch.setattr(build, "_build", lambda stem, srcs, cmd_for: seen
                         .setdefault(stem, (srcs, cmd_for("OUT"))))
     for name in ("sorted_segment_sum", "fused_gather_segment_sum",
-                 "weighted_segment_sum"):
+                 "weighted_segment_sum", "weighted_segment_grad"):
         build.kernel_lib_path(name)
         srcs, cmd = seen[f"sptpu_{name}"]
         assert srcs[0].endswith(f"csrc/{name}.cu") and cmd[-1] == srcs[0]
@@ -210,6 +211,27 @@ def test_weighted_kernel_entry_point_matches_its_argtypes():
            .rsplit(" ", 1)[0].replace(" *", "*") for p in params]
     assert got == want
     assert "weighted_segment_sum" in build.KERNELS
+
+
+def test_weighted_grad_entry_point_matches_its_argtypes():
+    """The C entry point of csrc/weighted_segment_grad.cu takes the
+    backward wrapper's ctypes arguments and the stream (nothing is
+    compiled here)."""
+    import re
+
+    from salient_plusplus_tpu_torch.native import build
+    from salient_plusplus_tpu_torch.ops import weighted_segment as W
+
+    with open(f"{build._CSRC}/weighted_segment_grad.cu") as f:
+        params = re.search(r"int sptpu_weighted_segment_grad\(([^)]*)\)",
+                           f.read()).group(1).split(",")
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int: "int",
+             ctypes.c_int64: "int64_t"}
+    want = [kinds[t] for t in W._GRAD_ARGTYPES] + ["void*"]
+    got = [re.sub(r"\s+", " ", p).replace("const ", "").strip()
+           .rsplit(" ", 1)[0].replace(" *", "*") for p in params]
+    assert got == want
+    assert "weighted_segment_grad" in build.KERNELS
 
 
 def test_split_scratch_matches_the_kernels_slice():
