@@ -28,19 +28,17 @@ every model of the zoo goes through them.
    bench-shape GAT batch's three message sums, against the float64 sum
    and timed beside the gather, multiply and K1 it replaces, and the same
    at a GATSkip batch's (4 heads of 128, of 47 in the last layer, fanouts
-   10,10,10), then one GATSkip train step's launch counts; the
-   custom-VJP GAT attention block (``ops/gat_agg.py``) at that batch's
-   mid hop, f32 against the CPU's autodiff path, then both paths timed in
-   bf16; K3's gradient (ARMA's differentiable gather) against the float64
-   sum and ``index_select``'s;
+   10,10,10), then one GATSkip train step's launch counts; K3's gradient
+   (ARMA's differentiable gather) against the float64 sum and
+   ``index_select``'s;
 4. the driver CLI end to end at the default model shape (batch 1024,
    fanouts 15,10,5, hidden 256, 3 layers) on a 100k-node synthetic graph,
    batchwise and then layerwise final test (slice 2's path); the kernels'
    launch counts are read around each run; then one epoch of SAGEClassic,
    GIN, JKNet and SAGEResInception (2 layers, hidden 128, layerwise); GAT
    and GCN at the default shape with a layerwise final test; ARMA
-   (batchwise) and GAT with ``SPTPU_GAT_CUSTOM_VJP=1`` at the small shape;
-   a checkpoint drill (2 epochs, ``RESUME=1`` to 3, ``--do_test_run``);
+   (batchwise) at the small shape; a checkpoint drill (2 epochs,
+   ``RESUME=1`` to 3, ``--do_test_run``);
 5. bench-shape training: the 1M-node power-law graph of bench.py with its
    config, step time, edges/s, padding waste, H2D bytes, starvation,
    peak memory; then 10 steps under torch.profiler for the device's busy
@@ -764,87 +762,6 @@ def phase_gatskip_step(trainer, dev):
           f"expected")
 
 
-def _rel_err(a, b) -> float:
-    a, b = a.double().cpu(), b.double().cpu()
-    return float((a - b).norm() / b.norm().clamp_min(1e-30))
-
-
-def phase_gat_agg(batch, dev, power, C=256):
-    """The custom-VJP attention block (``gat_attention_agg``: the weighted
-    gather + segment sum forward, K1 over the src-sorted mirror for d_xs)
-    at a GAT bench batch's layer-1 hop, one head of C: in f32 on the card
-    against the plain autodiff path (``gat_attention_agg_autodiff``) on
-    the CPU, output and every gradient
-    within 1e-4 relative (Frobenius) error (summation order and the
-    recomputed exponentials only); then both paths' forward + backward
-    timed on the card at the model's dtypes (bf16 rows, f32 logits for the
-    custom block, bf16 for autodiff): device time (the device sleeps while
-    the host enqueues up to 10 ms a call) and host-clock time a call."""
-    from salient_plusplus_tpu_torch.ops.gat_agg import (
-        gat_attention_agg, gat_attention_agg_autodiff)
-    from salient_plusplus_tpu_torch.ops.sorted_segment import (
-        sorted_segment_sum_mxu)
-    from salient_plusplus_tpu_torch.ops.weighted_segment import (
-        weighted_segment_sum)
-
-    e = batch.edges[1]
-    N, T = batch.layer_caps(1)
-    n = int(e.count)
-    g = torch.Generator(device=dev).manual_seed(5)
-    floats = [torch.randn(s, generator=g, device=dev) for s in
-              ((N, 1, C), (T, 1, C), (N, 1), (T, 1))]
-    grad_out = torch.randn(T, 1, C, generator=g, device=dev)
-    idx = (e.src, e.dst, e.count, e.msrc, e.mdst)
-
-    def run(fn, ts, idx, custom):
-        ts = [t.detach().clone().requires_grad_(True) for t in ts]
-        args = (idx if custom else idx[:3])
-        out = fn(T, 0.2, *ts, *args)
-        (out.float() * grad_out.to(out.device)).sum().backward()
-        return [out.detach()] + [t.grad for t in ts]
-
-    k1 = sorted_segment_sum_mxu.launches
-    ws = weighted_segment_sum.launches
-    got = run(gat_attention_agg, floats, idx, True)
-    torch.cuda.synchronize()
-    check(sorted_segment_sum_mxu.launches - k1 == 1
-          and weighted_segment_sum.launches - ws == 1,
-          "gat_attention_agg: the weighted sum not launched forward or K1 "
-          "not backward")
-    ref = run(gat_attention_agg_autodiff, [t.cpu() for t in floats],
-              [t.cpu() for t in idx], False)
-    errs = {}
-    for name, a, b in zip(("out", "d_xs", "d_xt", "d_a_src", "d_a_dst"),
-                          got, ref):
-        errs[name] = _rel_err(a, b)
-        check(errs[name] < 1e-4, f"gat_attention_agg {name}: rel err "
-              f"{errs[name]} against the CPU autodiff path")
-    log(f"  gat_attention_agg layer 1 (E={e.src.shape[0]} real={n} N={N} "
-        f"T={T} H=1 C={C}) f32 card vs CPU autodiff, rel Frobenius err: "
-        + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
-    bf = [floats[0].bfloat16(), floats[1].bfloat16()]
-    calls = {"custom VJP": lambda: run(gat_attention_agg, bf + floats[2:],
-                                       idx, True),
-             "autodiff": lambda: run(gat_attention_agg_autodiff,
-                                     bf + [t.bfloat16() for t in floats[2:]],
-                                     idx, False)}
-    res = {}
-    for label, fn in calls.items():
-        dev_ms = cuda_ms(fn, iters=10, host_ms=10.0)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        res[label] = (dev_ms, (time.perf_counter() - t0) * 1e2)
-    (c_dev, c_host), (a_dev, a_host) = res["custom VJP"], res["autodiff"]
-    log(f"  gat_attention_agg layer 1 fwd+bwd bf16: custom VJP device "
-        f"{c_dev:.4f} ms (host clock {c_host:.4f} ms), autodiff device "
-        f"{a_dev:.4f} ms (host clock {a_host:.4f} ms); custom/autodiff "
-        f"device {c_dev / a_dev:.3f}, host clock {c_host / a_host:.3f}"
-        f"  [{power}]")
-    return dict(custom_ms=c_dev, autodiff_ms=a_dev, errs=errs)
-
-
 def phase_k3_grad(batch, dev, F=256):
     """K3 differentiable on the card (ARMA's gather of the scaled
     projection) at a bench batch's layer-1 src ids into an [N_in, F] f32
@@ -981,8 +898,7 @@ def _at_least(counts, want, label):
 
 def phase_new_models(dev, V, C, small):
     """Slice 4's paths: GAT and GCN at the default shape with a layerwise
-    final test; ARMA (batchwise: it is not served layerwise) and GAT with
-    the custom-VJP attention (SPTPU_GAT_CUSTOM_VJP=1) at the small shape;
+    final test, ARMA (not served layerwise) batchwise at the small shape;
     each with its launch counts and final_valid above twice chance."""
     K1, K2, K3 = "sorted_segment_sum", "fused_gather_segment_sum", "gather_rows"
     WS = "weighted_segment_sum"
@@ -1006,16 +922,6 @@ def phase_new_models(dev, V, C, small):
         dev, V, C, ("--model_name", "ARMA", *batchwise), floor=2.0 / C))
     # K3: the features and ARMA's gather of each of its 2 hops
     _at_least(c, {K3: 3 * steps}, f"ARMA, {steps} train steps")
-    os.environ["SPTPU_GAT_CUSTOM_VJP"] = "1"
-    try:
-        _, c = driven("driver GAT custom VJP", lambda: phase_driver(
-            dev, V, C, ("--model_name", "GAT", *small), floor=2.0 / C))
-    finally:
-        del os.environ["SPTPU_GAT_CUSTOM_VJP"]
-    # every hop mirrored: the weighted sum forward and K1 over the mirror
-    # backward
-    _at_least(c, {WS: 2 * steps, K1: 2 * steps, K3: steps},
-              f"GAT custom VJP, {steps} train steps")
 
 
 def phase_resume(dev, V=100_000, C=32):
@@ -1262,8 +1168,8 @@ def phase_card_vs_cpu(dev, V=100_000, C=32, model_name="SAGE",
     1e-4 and 1e-3. Returns the loss difference."""
     from salient_plusplus_tpu_torch.data import synthetic
     from salient_plusplus_tpu_torch.data.dataset import pad_feature_dim
-    from salient_plusplus_tpu_torch.models import make_model
-    from salient_plusplus_tpu_torch.sampling.batch import mirror_all_specs
+    from salient_plusplus_tpu_torch.models import (
+        make_model, mirror_all_specs, model_class)
     from salient_plusplus_tpu_torch.sampling.cpp import (
         BatchBuffers, NativeSampler)
     from salient_plusplus_tpu_torch.sampling.sampler import FastSamplerConfig
@@ -1277,7 +1183,7 @@ def phase_card_vs_cpu(dev, V=100_000, C=32, model_name="SAGE",
     pool = g.split_idx["train"]
     spec = calibrate_spec(native, pool, 1024, [15, 10, 5], num_batches=4)
     spec = mirror_all_specs(model_name, spec)[0]
-    gsrc = model_name == "SAGE"
+    gsrc = model_class(model_name).reads_table_at_layer0
     cfg = FastSamplerConfig(spec=spec, batch_size=1024, emit_gsrc=gsrc,
                             compress_dst=True, pack_wire=True)
     bufs = BatchBuffers(spec)
@@ -2691,12 +2597,11 @@ def main() -> int:
     k23 = phase_k2_k3_main(trainer, batch, dev, power)
     phase_k2_k3_edge_cases(dev)
     del batch
-    # slice 4's GAT calls: a GAT bench batch's weighted message sums, the
-    # custom-VJP attention block at its mid hop, and K3's gradient
+    # slice 4's GAT calls: a GAT bench batch's weighted message sums and
+    # K3's gradient
     gat = model_trainer(trainer, "GAT", dev)
     batch = bench_batch(gat, dev)
     phase_weighted_gat(gat, batch, dev, power)
-    phase_gat_agg(batch, dev, power)
     phase_k3_grad(batch, dev)
     del batch, gat
     # GATSkip's multi-head weighted sums at its published widths (4 heads

@@ -109,7 +109,7 @@ def _h2d_preflight(device):
     return rate
 
 
-def gather_rows_per_step(spec, model_name, global_msg0, gat_custom):
+def gather_rows_per_step(spec, model_name, global_msg0):
     """Rows gathered per step (unsorted gathers + scatter-equivalents) at
     the CAPACITY shapes of ``spec`` — the JAX bench's row model
     (bench.py:323-343):
@@ -118,9 +118,8 @@ def gather_rows_per_step(spec, model_name, global_msg0, gat_custom):
       + 2x inner-hop msgs (fwd + bwd mirrors);
     - frontier mode: full frontier + all fwd msgs + inner bwd mirrors;
     - GAT (approx): N + 4E per the autodiff attention path (msg gather +
-      two thin logit gathers fwd, ~one gather + the d_xs scatter bwd), or
-      7 row-ops an edge with the custom VJP (``gat_custom``); GATSkip
-      (approx) as GAT's autodiff path;
+      two thin logit gathers fwd, ~one gather + the d_xs scatter bwd);
+      GATSkip (approx) as GAT;
     - GCN: frontier gather (N) + per hop the fwd msg gather and the bwd
       mirror gather (2E).
 
@@ -129,9 +128,7 @@ def gather_rows_per_step(spec, model_name, global_msg0, gat_custom):
     L = spec.num_hops
     inner = sum(spec.edge_caps[: L - 1])
     total_e = sum(spec.edge_caps)
-    if model_name == "GAT":
-        return spec.total_node_cap + (7 if gat_custom else 4) * total_e
-    if model_name == "GATSkip":
+    if model_name in ("GAT", "GATSkip"):
         return spec.total_node_cap + 4 * total_e
     if model_name == "GCN":
         return spec.total_node_cap + 2 * total_e
@@ -299,7 +296,6 @@ def main(device=None):
     dev = resolve_device(device)
 
     from .data import synthetic
-    from .ops.gat_agg import gat_custom_agg_enabled
     from .train.loop import Trainer
     from .train.pipeline import DeviceFeeder
 
@@ -404,16 +400,15 @@ def main(device=None):
         }
 
     degraded_frac = float(os.environ.get("BENCH_DEGRADED_FRAC", 0.25))
-    gat_custom = gat_custom_agg_enabled()
 
     def step_rows(tight_frac):
         """Rows a step gathers, weighted by the campaign's tight share."""
         rows = gather_rows_per_step(trainer.train_spec, model_name,
-                                    trainer.global_msg0, gat_custom)
+                                    trainer.global_msg0)
         if trainer.train_tight is not None:
             rows = (tight_frac * gather_rows_per_step(
-                trainer.train_tight, model_name, trainer.global_msg0,
-                gat_custom) + (1 - tight_frac) * rows)
+                trainer.train_tight, model_name, trainer.global_msg0)
+                + (1 - tight_frac) * rows)
         return rows
 
     def tight_share(stats):

@@ -9,32 +9,30 @@ row-gather kernel (K3), the layer core aggregates them through the
 no-mirror hop (the fused gather + segment-sum kernel, K2), and the chunk's
 rows are written into the next layer's embedding matrix.
 
-Served here: SAGE, SAGEClassic, GIN, JKNet, SAGEResInception, GAT, GCN
-and GATSkip (each layer's conv plus its skip projection of the chunk's own
-rows, the last conv's heads averaged, as its forward has them).
-BatchNorm layers run off the trained running statistics (the model is put
-in ``eval()`` mode). GAT's chunk hop has no mirror: its message sum is the
-sorted segment-sum kernel (K1); GCN's is K2, as every other model's. ARMA
-is broken in the reference itself and raises, as in the JAX package. The
-functions take the port's model, not flax params.
+Each model's full-graph plan is its ``layerwise(x_all, propagate)``, in
+``models/modules.py`` beside its ``forward``; a model whose ``layerwise``
+is ``None`` (ARMA, broken in the reference itself) raises, as in the JAX
+package. BatchNorm layers run off the trained running statistics (the
+model is put in ``eval()`` mode). The chunk hop has no mirror: GAT's and
+GATSkip's message sums are the fused weighted gather + segment sum
+(``ops/weighted_segment.py``), every other model's is K2. The functions
+take the port's model, not flax params.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.segment import gather_rows
 from ..sampling.batch import BatchSpec, EdgeBlock
 from ..sampling.cpp import BatchBuffers, NativeSampler
-from .modules import MODELS
+from .modules import MODELS, model_class
 
-# not served layerwise by the JAX package either: the trainer scores it
-# batchwise
-UNSERVED = ("ARMA",)
-SUPPORTED = tuple(m for m in MODELS if m not in UNSERVED)
+# not served layerwise (ARMA, as in the JAX package): the trainers score
+# them batchwise
+UNSERVED = tuple(m for m, cls in MODELS.items() if cls.layerwise is None)
 
 
 def _chunk_spec(rowptr: np.ndarray, chunk: int, align: int = 128) -> BatchSpec:
@@ -116,93 +114,20 @@ def layerwise_inference(model_name: str, model: nn.Module, graph_rowptr,
     return run_layerwise_zoo(model_name, model, x_all, eng)
 
 
-def _finish(x: torch.Tensor) -> torch.Tensor:
-    return torch.log_softmax(x.to(torch.float32), dim=-1)
-
-
 @torch.no_grad()
 def run_layerwise_zoo(model_name: str, model: nn.Module,
                       x_all: torch.Tensor, eng) -> torch.Tensor:
-    """Model-zoo dispatch for layerwise inference over a propagation
+    """The model's own plan (``model.layerwise``) over a propagation
     engine (``eng.propagate`` runs one full-graph layer). The model runs in
     ``eval()`` mode and is put back in its mode afterwards."""
-    if model_name in UNSERVED:
+    if model_class(model_name).layerwise is None:
         raise NotImplementedError(
             f"layerwise inference not implemented for {model_name} "
             "(ARMA is broken in the reference itself, driver/main.py:93)")
-    if model_name not in SUPPORTED:
-        raise ValueError(f"unknown model {model_name!r}")
     was_training = model.training
     model.eval()
     try:
-        return _zoo(model_name, model, x_all, eng)
+        return model.layerwise(x_all, eng.propagate)
     finally:
         model.train(was_training)
 
-
-def _zoo(model_name, model, x_all, eng):
-    L = model.num_layers
-    propagate = eng.propagate
-    convs = [getattr(model, f"conv{i}") for i in range(L)]
-    emb = x_all
-
-    if model_name in ("SAGE", "SAGEClassic", "GAT"):
-        for i, conv in enumerate(convs):
-            def core(x, edge, n, conv=conv, last=i == L - 1):
-                h = conv(x, x[:n], edge, n)
-                return h if last else torch.relu(h)
-
-            emb = propagate(core, emb, conv.out_features)
-        return _finish(emb)
-
-    if model_name == "GATSkip":
-        for i, conv in enumerate(convs):
-            def core(x, edge, n, conv=conv, skip=getattr(model, f"skip{i}"),
-                     last=i == L - 1):
-                h = conv(x, x[:n], edge, n) + skip(x[:n])
-                return h if last else F.elu(h)
-
-            emb = propagate(core, emb, conv.out_features)
-        return _finish(emb)
-
-    if model_name == "GCN":
-        for i, conv in enumerate(convs):
-            bn = None if i == L - 1 else getattr(model, f"bn{i}")
-
-            def core(x, edge, n, conv=conv, bn=bn):
-                h = conv(x, edge, n)
-                return h if bn is None else torch.relu(bn(h))
-
-            emb = propagate(core, emb, conv.out_features)
-        return _finish(emb)
-
-    if model_name == "GIN":
-        for conv in convs:
-            def core(x, edge, n, conv=conv):
-                return conv(x, x[:n], edge, n)
-
-            emb = propagate(core, emb, conv.out_features)
-        return _finish(model.lin2(torch.relu(model.lin1(emb))))
-
-    bns = [getattr(model, f"bn{i}") for i in range(L)]
-    if model_name == "JKNet":
-        pooled = None  # JK 'max' mode as a running maximum: O(V·H)
-        for conv, bn in zip(convs, bns):
-            def core(x, edge, n, conv=conv, bn=bn):
-                return torch.relu(bn(conv(x, x[:n], edge, n)))
-
-            emb = propagate(core, emb, conv.out_features)
-            pooled = emb if pooled is None else torch.maximum(pooled, emb)
-        return _finish(model.lin(pooled))
-
-    # SAGEResInception
-    emb = x_all.to(model.dtype)
-    collect = [emb]
-    for i, (conv, bn) in enumerate(zip(convs, bns)):
-        def core(x, edge, n, conv=conv, bn=bn):
-            return F.leaky_relu(bn(conv(x, x[:n], edge, n)), 0.01)
-
-        h_all = propagate(core, emb, conv.out_features)
-        collect.append(h_all)
-        emb = h_all + (model.res0(emb) if i == 0 else emb)
-    return _finish(model.mlp(torch.cat(collect, dim=-1)))

@@ -22,8 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gat_agg import (gat_attention_agg, gat_attention_agg_autodiff,
-                           gat_custom_agg_enabled)
+from ..ops.gat_agg import gat_attention_agg_autodiff
 from ..ops.segment import gather_rows, masked_segment_sum, valid_mask
 from ..ops.sorted_segment import spmm_agg
 from ..sampling.batch import EdgeBlock
@@ -117,16 +116,14 @@ class GATConv(nn.Module):
     sum's f32 output, before the cast) and ``use_bias`` adds PyG's bias
     (zeros at init) after the concatenation or the average.
 
-    Default path (``ops/gat_agg.py::gat_attention_agg_autodiff``):
+    The attention block (``ops/gat_agg.py::gat_attention_agg_autodiff``):
     attention logits gathered per edge, the self-inclusive softmax, the
     weighted message sum by the fused weighted gather + segment sum
     (``ops/weighted_segment.py``: no [E, H·C] messages, nor in its
-    backward's two kernels) and the self term; autograd does the rest.
-    With ``SPTPU_GAT_CUSTOM_VJP=1``, concatenated heads and a hop that
-    carries its src-sorted mirror, the block with the hand-derived backward
-    (``gat_attention_agg``) runs instead, as in the JAX package. Under a
-    profiler either block is the span ``gat.attention``; the projections
-    stay outside it."""
+    backward's two kernels) and the self term; autograd does the rest. It
+    reads no src-sorted mirror: a hop that carries one gives the same
+    result. Under a profiler the block is the span ``gat.attention``; the
+    projections stay outside it."""
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  negative_slope: float = 0.2,
@@ -161,18 +158,10 @@ class GATConv(nn.Module):
         xt = self.lin_src(x_target).view(-1, H, C)
         alpha_src = (xs * self.att_src.to(self.dtype)).sum(-1)   # [N_in, H]
         alpha_dst = (xt * self.att_dst.to(self.dtype)).sum(-1)   # [T, H]
-        ns = self.negative_slope
         with span("gat.attention"):
-            if (self.concat and gat_custom_agg_enabled()
-                    and edge.msrc is not None):
-                out = gat_attention_agg(
-                    out_cap, ns, xs, xt, alpha_src.float(),
-                    alpha_dst.float(), edge.src, edge.dst, edge.count,
-                    edge.msrc, edge.mdst)
-            else:
-                out = gat_attention_agg_autodiff(
-                    out_cap, ns, xs, xt, alpha_src, alpha_dst, edge.src,
-                    edge.dst, edge.count, mean_heads=not self.concat)
+            out = gat_attention_agg_autodiff(
+                out_cap, self.negative_slope, xs, xt, alpha_src, alpha_dst,
+                edge.src, edge.dst, edge.count, mean_heads=not self.concat)
         out = out.reshape(-1, self.out_features).to(self.dtype)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)

@@ -6,23 +6,32 @@ own GATSkip, PyG's ogbn-products GAT; ``make_model`` builds any of them
 (``MODELS``).
 
 Call convention: ``model(x, batch, training=..., generator=...)`` (plus
-``features=`` for the models whose layer 0 can read the table: SAGE,
-SAGEClassic, GIN) returns float32 log-probabilities [seed_cap,
-num_classes]; only rows < batch.seed_count are valid. ``training`` turns
-dropout on and ``generator`` draws its masks. BatchNorm follows the
-module's mode: ``model.train()`` takes batch statistics and updates the
-running ones, ``model.eval()`` reads them.
+``features=`` for the models whose layer 0 can read the table) returns
+float32 log-probabilities [seed_cap, num_classes]; only rows <
+batch.seed_count are valid. ``training`` turns dropout on and
+``generator`` draws its masks. BatchNorm follows the module's mode:
+``model.train()`` takes batch statistics and updates the running ones,
+``model.eval()`` reads them.
+
+Each class declares beside its ``forward`` what the specs, the trainers
+and layerwise inference read of it: ``reads_table_at_layer0`` (layer 0
+can aggregate straight from the device table: gsrc mode, ``features=``),
+``mirrors_outer_hop`` (the outermost hop needs its src-sorted mirror:
+``mirror_all_specs``) and ``layerwise(x_all, propagate)``, its full-graph
+plan, one ``propagate`` a layer (``models/inference.py``; ``None``: not
+served). A model is added here: its class and its name in ``MODELS``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sampling.batch import PaddedBatch
+from ..sampling.batch import BatchSpec, PaddedBatch
 from ..utils.timing import span
 from .layers import (
     ARMAConv, Dense, GATConv, GCNConv, GINConv, MLP, MaskedBatchNorm,
@@ -37,7 +46,15 @@ def _check_layers(model, batch: PaddedBatch) -> int:
     return L
 
 
+def _log_probs(x: torch.Tensor) -> torch.Tensor:
+    return torch.log_softmax(x.to(torch.float32), dim=-1)
+
+
 class _GNNBase(nn.Module):
+    reads_table_at_layer0 = False
+    mirrors_outer_hop = False
+    layerwise = None
+
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, num_layers: int, dropout: float = 0.5,
                  dtype: torch.dtype = torch.bfloat16):
@@ -51,8 +68,10 @@ class _GNNBase(nn.Module):
 
     def _final(self, x: torch.Tensor, batch: PaddedBatch) -> torch.Tensor:
         """Slice to seed rows, float32 log_softmax."""
-        out = x[: batch.spec.seed_cap].to(torch.float32)
-        return torch.log_softmax(out, dim=-1)
+        return _log_probs(x[: batch.spec.seed_cap])
+
+    def _convs(self):
+        return [getattr(self, f"conv{i}") for i in range(self.num_layers)]
 
 
 def _layer0_inputs(x, batch: PaddedBatch, features, out_cap, dtype):
@@ -73,6 +92,7 @@ class SAGE(_GNNBase):
     """3-layer default GraphSAGE, bias-free convs."""
 
     use_bias = False
+    reads_table_at_layer0 = True
 
     def __init__(self, *args, generator: Optional[torch.Generator] = None,
                  **kw):
@@ -104,6 +124,17 @@ class SAGE(_GNNBase):
                 x = dropout(x, self.dropout, training, generator)
         return self._final(x, batch)
 
+    def layerwise(self, x_all, propagate):
+        L = self.num_layers
+        emb = x_all
+        for i, conv in enumerate(self._convs()):
+            def core(x, edge, n, conv=conv, last=i == L - 1):
+                h = conv(x, x[:n], edge, n)
+                return h if last else torch.relu(h)
+
+            emb = propagate(core, emb, conv.out_features)
+        return _log_probs(emb)
+
 
 class SAGEClassic(SAGE):
     """SAGE with default-bias convs."""
@@ -113,6 +144,8 @@ class SAGEClassic(SAGE):
 
 class GIN(_GNNBase):
     """GIN with 2-layer BN MLPs per conv + 2-layer head."""
+
+    reads_table_at_layer0 = True
 
     def __init__(self, *args, generator: Optional[torch.Generator] = None,
                  **kw):
@@ -142,6 +175,15 @@ class GIN(_GNNBase):
         x = torch.relu(self.lin1(x))
         x = dropout(x, self.dropout, training, generator)
         return self._final(self.lin2(x), batch)
+
+    def layerwise(self, x_all, propagate):
+        emb = x_all
+        for conv in self._convs():
+            def core(x, edge, n, conv=conv):
+                return conv(x, x[:n], edge, n)
+
+            emb = propagate(core, emb, conv.out_features)
+        return _log_probs(self.lin2(torch.relu(self.lin1(emb))))
 
 
 class JKNet(_GNNBase):
@@ -173,6 +215,16 @@ class JKNet(_GNNBase):
             xs.append(x[:end_cap])
         x = torch.stack(xs).amax(0)   # JK 'max' mode
         return self._final(self.lin(x), batch)
+
+    def layerwise(self, x_all, propagate):
+        emb, pooled = x_all, None   # JK 'max' mode, running: O(V·H)
+        for i, conv in enumerate(self._convs()):
+            def core(x, edge, n, conv=conv, bn=getattr(self, f"bn{i}")):
+                return torch.relu(bn(conv(x, x[:n], edge, n)))
+
+            emb = propagate(core, emb, conv.out_features)
+            pooled = emb if pooled is None else torch.maximum(pooled, emb)
+        return _log_probs(self.lin(pooled))
 
 
 class SAGEResInception(_GNNBase):
@@ -221,6 +273,18 @@ class SAGEResInception(_GNNBase):
         out = self.mlp(torch.cat(collect, dim=-1), batch.level_sizes[0])
         return self._final(out, batch)
 
+    def layerwise(self, x_all, propagate):
+        emb = x_all.to(self.dtype)
+        collect = [emb]
+        for i, conv in enumerate(self._convs()):
+            def core(x, edge, n, conv=conv, bn=getattr(self, f"bn{i}")):
+                return F.leaky_relu(bn(conv(x, x[:n], edge, n)), 0.01)
+
+            h_all = propagate(core, emb, conv.out_features)
+            collect.append(h_all)
+            emb = h_all + (self.res0(emb) if i == 0 else emb)
+        return _log_probs(self.mlp(torch.cat(collect, dim=-1)))
+
 
 class GAT(_GNNBase):
     """Single-head GAT, bias-free convs."""
@@ -247,6 +311,8 @@ class GAT(_GNNBase):
             if i != L - 1:
                 x = dropout(torch.relu(x), self.dropout, training, generator)
         return self._final(x, batch)
+
+    layerwise = SAGE.layerwise   # each conv, then ReLU
 
 
 class GATSkip(_GNNBase):
@@ -295,6 +361,18 @@ class GATSkip(_GNNBase):
                 x = dropout(F.elu(x), self.dropout, training, generator)
         return self._final(x, batch)
 
+    def layerwise(self, x_all, propagate):
+        L = self.num_layers
+        emb = x_all
+        for i, conv in enumerate(self._convs()):
+            def core(x, edge, n, conv=conv, skip=getattr(self, f"skip{i}"),
+                     last=i == L - 1):
+                h = conv(x, x[:n], edge, n) + skip(x[:n])
+                return h if last else F.elu(h)
+
+            emb = propagate(core, emb, conv.out_features)
+        return _log_probs(emb)
+
 
 class GCN(_GNNBase):
     """GCN with normalize=False, bias-free convs and masked BN between
@@ -303,6 +381,8 @@ class GCN(_GNNBase):
     in-level's valid rows. A conv reads only the rows of its hop's input
     level, so the mirrored backward drops the mirror's pads (msrc = that
     level's cap) instead of adding them into the row past it."""
+
+    mirrors_outer_hop = True
 
     def __init__(self, *args, generator: Optional[torch.Generator] = None,
                  **kw):
@@ -330,12 +410,28 @@ class GCN(_GNNBase):
                 x = dropout(torch.relu(x), self.dropout, training, generator)
         return self._final(x, batch)
 
+    def layerwise(self, x_all, propagate):
+        L = self.num_layers
+        emb = x_all
+        for i, conv in enumerate(self._convs()):
+            bn = None if i == L - 1 else getattr(self, f"bn{i}")
+
+            def core(x, edge, n, conv=conv, bn=bn):
+                h = conv(x, edge, n)
+                return h if bn is None else torch.relu(bn(h))
+
+            emb = propagate(core, emb, conv.out_features)
+        return _log_probs(emb)
+
 
 class ARMA(_GNNBase):
     """ARMA_1 stack (flagged broken in the reference; provided for API
     parity, as in the JAX package). The last conv keeps the hidden width,
     as the reference's does, so the log-softmax runs over ``hidden``
     columns."""
+
+    mirrors_outer_hop = True
+    layerwise = None   # not served, as in the JAX package: scored batchwise
 
     def __init__(self, *args, generator: Optional[torch.Generator] = None,
                  **kw):
@@ -366,14 +462,31 @@ MODEL_REGISTRY = {"SAGE": SAGE, "SAGEClassic": SAGEClassic, "GIN": GIN,
 MODELS = {**MODEL_REGISTRY, "GATSkip": GATSkip}
 
 
+def model_class(name: str) -> type:
+    """The zoo's class of ``name``; a name outside the zoo raises."""
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}")
+    return MODELS[name]
+
+
 def make_model(name: str, in_features: int, hidden_features: int,
                out_features: int, num_layers: int, dropout: float = 0.5,
                dtype: torch.dtype = torch.bfloat16,
                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build a model of the zoo on the CPU with float32 parameters;
     ``generator`` draws the initial weights."""
-    if name not in MODELS:
-        raise ValueError(f"unknown model {name!r}")
-    return MODELS[name](in_features, hidden_features, out_features,
-                        num_layers, dropout=dropout, dtype=dtype,
-                        generator=generator)
+    return model_class(name)(in_features, hidden_features, out_features,
+                             num_layers, dropout=dropout, dtype=dtype,
+                             generator=generator)
+
+
+def mirror_all_specs(model_name: str, spec: BatchSpec,
+                     tight: Optional[BatchSpec] = None):
+    """A calibrated (spec, tight) pair with the model's
+    ``mirrors_outer_hop`` as their ``mirror_all`` (the JAX package's rule,
+    so specs stay identical)."""
+    if model_class(model_name).mirrors_outer_hop:
+        spec = dataclasses.replace(spec, mirror_all=True)
+        if tight is not None:
+            tight = dataclasses.replace(tight, mirror_all=True)
+    return spec, tight

@@ -150,7 +150,7 @@ def segment_softmax_self(logits: torch.Tensor, dst: torch.Tensor, count,
     [T, H]) with pad edges 0 and empty targets ``self_att`` 1; with
     ``return_stats`` also (m_t, D_t), the per-target max and denominator
     from which ``att_e = exp(z_e - m_t) / D_t`` for any edge order (the
-    residuals of ``ops/gat_agg.py``)."""
+    residuals of the JAX package's hand-derived GAT block)."""
     T = num_segments
     safe = _safe_dst(dst, count, T)
     real = (safe < T)[:, None]

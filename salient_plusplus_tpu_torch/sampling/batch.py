@@ -108,28 +108,6 @@ class BatchSpec:
         return cls(tuple(fanouts), batch_size, tuple(node_caps), tuple(edge_caps))
 
 
-# Models that differentiate a projection of the raw input (GCN, ARMA) need
-# the outermost hop's mirror too; so does GAT under its opt-in custom-VJP
-# attention (ops/gat_agg.py). The JAX package's rule, so specs stay
-# identical.
-MIRROR_ALL_MODELS = ("GCN", "ARMA")
-
-
-def mirror_all_specs(model_name: str, spec: BatchSpec,
-                     tight: Optional[BatchSpec] = None):
-    """Apply the model-dependent ``mirror_all`` flag to a calibrated
-    (spec, tight) pair. Mutually exclusive with gsrc mode, which only the
-    SAGE family and GIN enable."""
-    from ..ops.gat_agg import gat_custom_agg_enabled
-
-    if model_name in MIRROR_ALL_MODELS or (
-            model_name == "GAT" and gat_custom_agg_enabled()):
-        spec = dataclasses.replace(spec, mirror_all=True)
-        if tight is not None:
-            tight = dataclasses.replace(tight, mirror_all=True)
-    return spec, tight
-
-
 def _unpack24(lo: torch.Tensor, hi: Optional[torch.Tensor]) -> torch.Tensor:
     """int32 ids from a wire-packed pair. ``lo`` ships as int16 (the bits
     of the sampler's uint16 halves) and ``hi`` as uint8; both widen to

@@ -35,11 +35,10 @@ from ..caching.vip import get_lambda_vip_cache
 from ..config import RunConfig
 from ..data.dataset import GraphData, pad_feature_dim
 from ..data.reorder import reorder_graph
-from ..models import make_model
+from ..models import make_model, mirror_all_specs
 from ..parallel.exchange import (
     DeviceCache, assemble_features, fp8_encode_rows_np, wire_row_bytes)
 from ..parallel.spmd import broadcast_model, eval_step, train_step
-from ..sampling.batch import mirror_all_specs
 from ..sampling.cpp import NativeSampler, gather_rows
 from ..sampling.sampler import FastSampler, FastSamplerConfig
 from ..sampling.shufflers import (

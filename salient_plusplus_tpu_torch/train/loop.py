@@ -27,8 +27,8 @@ import torch
 
 from ..config import RunConfig
 from ..data.dataset import GraphData, pad_feature_dim
-from ..models import make_model
-from ..sampling.batch import BatchSpec, mirror_all_specs
+from ..models import make_model, mirror_all_specs, model_class
+from ..sampling.batch import BatchSpec
 from ..parallel.exchange import fp8_encode_rows_np
 from ..sampling.cold_cache import HostColdCache
 from ..sampling.cpp import BatchBuffers, NativeSampler
@@ -214,8 +214,8 @@ class Trainer:
         # the batch's cold rows are written into a slack region of the
         # table before its step and cold ids are remapped to slack slots
         # by the sampler, so the same single-gather path applies.
-        self.global_msg0 = (cfg.gsrc_mode != "off" and
-                            cfg.model_name in ("SAGE", "SAGEClassic", "GIN"))
+        self.global_msg0 = (cfg.gsrc_mode != "off" and model_class(
+            cfg.model_name).reads_table_at_layer0)
         self._gsrc_cold = self.global_msg0 and H is not None
         self._slack = 0
         # ship uint8 per-target degrees instead of int32 dst

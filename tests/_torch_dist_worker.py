@@ -136,7 +136,6 @@ def spmd_rank(rank: int, init_file: str, out_dir: str) -> None:
             return TrainState(m, SPMD_LR, seed=0, device=torch.device("cpu"))
 
         for name in SPMD_MODELS:
-            os.environ["SPTPU_GAT_CUSTOM_VJP"] = "1" if name == "GAT" else ""
             batches = [spmd_batch(cpp, sampler, BatchSpec, g, t, rank,
                                   name == "GAT") for t in range(SPMD_STEPS)]
             for mode in SPMD_MODES:
@@ -159,7 +158,6 @@ def spmd_rank(rank: int, init_file: str, out_dir: str) -> None:
                     out[f"{key}_s/{k}"] = v
                 out[f"{key}_eval"] = spmd.eval_step(st, feats, batches[0],
                                                     **kw).numpy()
-        os.environ["SPTPU_GAT_CUSTOM_VJP"] = ""
         # dropout 0.5: the same batch and weights on both ranks; the
         # forward's output (per rank, before any averaging) shows the mask
         b = spmd_batch(cpp, sampler, BatchSpec, g, 0, 0, False)

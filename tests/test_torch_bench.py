@@ -91,21 +91,19 @@ SPEC = BatchSpec(fanouts=(15, 10, 5), seed_cap=1024,
 
 # the row model of bench.py:323-343, written out for SPEC: N = 448128,
 # E = 19968 + 194560 + 718336 = 932864, inner = 19968 + 194560 = 214528
-@pytest.mark.parametrize("model,gsrc,gat_custom,rows", [
+@pytest.mark.parametrize("model,gsrc,rows", [
     # gsrc: node_caps[2] + edge_caps[2] + 2 inner (bench.py:341-342)
-    ("SAGE", True, False, 144000 + 718336 + 2 * 214528),
+    ("SAGE", True, 144000 + 718336 + 2 * 214528),
     # frontier mode: N + E + inner (bench.py:343)
-    ("SAGE", False, False, 448128 + 932864 + 214528),
+    ("SAGE", False, 448128 + 932864 + 214528),
     # GAT, autodiff attention: N + 4E (bench.py:327-332)
-    ("GAT", False, False, 448128 + 4 * 932864),
-    # GAT, custom VJP: N + 7E (bench.py:331-332)
-    ("GAT", False, True, 448128 + 7 * 932864),
+    ("GAT", False, 448128 + 4 * 932864),
     # GCN: N + 2E (bench.py:333-340)
-    ("GCN", False, False, 448128 + 2 * 932864),
+    ("GCN", False, 448128 + 2 * 932864),
 ])
-def test_gather_rows_per_step(model, gsrc, gat_custom, rows):
-    assert bench.gather_rows_per_step(SPEC, model, gsrc, gat_custom) == rows
-    assert rows in (1_291_392, 1_595_520, 4_179_584, 6_978_176, 2_313_856)
+def test_gather_rows_per_step(model, gsrc, rows):
+    assert bench.gather_rows_per_step(SPEC, model, gsrc) == rows
+    assert rows in (1_291_392, 1_595_520, 4_179_584, 2_313_856)
 
 
 def _jax_gather_rows(model_name, global_msg0):
@@ -129,16 +127,14 @@ TIGHT = BatchSpec(fanouts=(15, 10, 5), seed_cap=1024,
                   edge_caps=(15360, 143360, 480000))
 
 
-@pytest.mark.parametrize("model,gsrc,gat_custom", [
-    ("SAGE", True, False), ("SAGE", False, False), ("GAT", False, False),
-    ("GAT", False, True), ("GCN", False, False), ("GIN", True, False)])
+@pytest.mark.parametrize("model,gsrc", [
+    ("SAGE", True), ("SAGE", False), ("GAT", False), ("GCN", False),
+    ("GIN", True)])
 @pytest.mark.parametrize("spec", [SPEC, TIGHT], ids=["big", "tight"])
-def test_gather_rows_per_step_matches_jax(monkeypatch, spec, model, gsrc,
-                                          gat_custom):
-    gat_agg = importlib.import_module("salient_plusplus_tpu.ops.gat_agg")
-    monkeypatch.setattr(gat_agg, "gat_custom_agg_enabled",
-                        lambda: gat_custom)
-    assert bench.gather_rows_per_step(spec, model, gsrc, gat_custom) == \
+def test_gather_rows_per_step_matches_jax(monkeypatch, spec, model, gsrc):
+    # the JAX row model with its GAT switch unset: the port's one path
+    monkeypatch.delenv("SPTPU_GAT_CUSTOM_VJP", raising=False)
+    assert bench.gather_rows_per_step(spec, model, gsrc) == \
         _jax_gather_rows(model, gsrc)(spec)
 
 

@@ -372,67 +372,23 @@ def test_gather_kernel_gradient_matches_index_select(cuda_device, dtype):
     assert grads[1].abs().sum() > 0
 
 
-@pytest.mark.parametrize("case", [(4096, 512, 1024, 3900, 1, 256),
-                                  (2048, 256, 600, 2048, 2, 32),
-                                  (1024, 128, 256, 0, 1, 64)])
-def test_gat_attention_agg_on_card_matches_cpu(cuda_device, case):
-    """The custom-VJP attention block on the card (the weighted gather +
-    segment sum forward, K1 over the mirror for d_xs) against the CPU's
-    plain versions, f32: summation order only, 1e-4."""
-    from salient_plusplus_tpu_torch.ops.gat_agg import gat_attention_agg
-
-    E, T, N, n, H, C = case
-    rng = np.random.default_rng(E + n)
-    dst = np.sort(rng.integers(0, T, n)).astype(np.int32)
-    src = rng.integers(0, N, n).astype(np.int32)
-    order = np.argsort(src, kind="stable")
-    idx = [np.concatenate([a, np.full(E - n, p, np.int32)]) for a, p in (
-        (src, 0), (dst, T), (src[order], N), (dst[order], 0))]
-    floats = [rng.standard_normal(s).astype(np.float32) for s in
-              ((N, H, C), (T, H, C), (N, H), (T, H))]
-    g = torch.from_numpy(rng.standard_normal((T, H, C)).astype(np.float32))
-    res = []
-    for dev in ("cpu", cuda_device):
-        ts = [torch.from_numpy(a).to(dev).requires_grad_(True)
-              for a in floats]
-        s, d, ms, md = (torch.from_numpy(a).to(dev) for a in idx)
-        k1 = S.sorted_segment_sum_mxu.launches
-        ws = W.weighted_segment_sum.launches
-        out = gat_attention_agg(T, 0.2, *ts, s, d,
-                                torch.tensor(n, dtype=torch.int32,
-                                             device=dev), ms, md)
-        (out * g.to(dev)).sum().backward()
-        if dev != "cpu":
-            torch.cuda.synchronize()
-            assert S.sorted_segment_sum_mxu.launches == k1 + 1
-            assert W.weighted_segment_sum.launches == ws + 1
-        res.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
-    for a, b in zip(*res):
-        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("name", ["GAT", "GAT-custom", "GCN", "ARMA"])
-def test_model_step_on_card_matches_cpu(cuda_device, name, monkeypatch):
-    """One train step of GAT (autodiff and custom-VJP attention), GCN and
-    ARMA from the same weights and batch, on the card (kernels) and on the
-    CPU (plain versions): float32 with TF32 off, dropout 0, so the two
-    differ in summation order only. Loss within 1e-5, each gradient
-    within 1e-3 relative (Frobenius) error; the card's step launches its
-    kernels (GAT: the weighted sum once per hop forward, and with the
-    custom VJP K1 once per hop backward; GCN: K1 once per hop forward and
-    backward; ARMA: K3 once per hop; K3 once for the features)."""
+@pytest.mark.parametrize("model_name", ["GAT", "GCN", "ARMA"])
+def test_model_step_on_card_matches_cpu(cuda_device, model_name):
+    """One train step of GAT, GCN and ARMA from the same weights and batch,
+    on the card (kernels) and on the CPU (plain versions): float32 with
+    TF32 off, dropout 0, so the two differ in summation order only. Loss
+    within 1e-5, each gradient within 1e-3 relative (Frobenius) error; the
+    card's step launches its kernels (GAT: the weighted sum once per hop
+    forward; GCN: K1 once per hop forward and backward; ARMA: K3 once per
+    hop; K3 once for the features)."""
     from salient_plusplus_tpu_torch.data import synthetic
-    from salient_plusplus_tpu_torch.models import make_model
-    from salient_plusplus_tpu_torch.sampling.batch import (BatchSpec,
-                                                           mirror_all_specs)
+    from salient_plusplus_tpu_torch.models import make_model, mirror_all_specs
+    from salient_plusplus_tpu_torch.sampling.batch import BatchSpec
     from salient_plusplus_tpu_torch.sampling.cpp import NativeSampler
     from salient_plusplus_tpu_torch.train.state import TrainState
     from salient_plusplus_tpu_torch.train.step import train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    model_name = name.split("-")[0]
-    monkeypatch.setenv("SPTPU_GAT_CUSTOM_VJP",
-                       "1" if name.endswith("custom") else "")
     g = synthetic.planted_partition("cuda-m", num_nodes=3000, num_classes=6,
                                     avg_degree=10, num_features=24, seed=4)
     spec = mirror_all_specs(model_name,
@@ -461,9 +417,10 @@ def test_model_step_on_card_matches_cpu(cuda_device, name, monkeypatch):
             k1 = S.sorted_segment_sum_mxu.launches - k1
             k3 = G.pallas_gather_rows.launches - k3
             ws = W.weighted_segment_sum.launches - ws
-            want_k1 = {"GAT": 0, "GAT-custom": 3, "GCN": 6, "ARMA": 0}[name]
+            want_k1 = {"GAT": 0, "GCN": 6, "ARMA": 0}[model_name]
             want_ws = 3 if model_name == "GAT" else 0
-            assert (k1, k3, ws) == (want_k1, 4 if name == "ARMA" else 1,
+            assert (k1, k3, ws) == (want_k1,
+                                    4 if model_name == "ARMA" else 1,
                                     want_ws)
     (lc, gc), (lg, gg) = out["cpu"], out[str(cuda_device)]
     assert abs(lc - lg) < 1e-5, (lc, lg)

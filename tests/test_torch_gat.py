@@ -1,9 +1,9 @@
 """GAT in the port against the JAX package, on the CPU: the four softmax
 ops of ``ops/segment.py``, ``GATConv`` forward and gradients, the
-custom-VJP attention block ``ops/gat_agg.py`` against JAX's and against
-the port's own autodiff path, and the fused weighted sum of both blocks
-(``ops/weighted_segment.py``) against a loop, JAX's block and the
-gather → multiply → segment sum it replaces.
+attention block ``ops/gat_agg.py`` against JAX's block and its
+hand-derived backward, ``GATConv`` with and without the hop's mirror, and
+the block's fused weighted sum (``ops/weighted_segment.py``) against a
+loop, JAX's block and the gather → multiply → segment sum it replaces.
 
 Inputs are made with numpy from a seed and handed to both packages. The
 JAX package's Pallas kernels run in interpret mode, as its own tests run
@@ -236,15 +236,8 @@ def _torch_grads(fn, floats, g):
     return out.detach().numpy(), [t.grad.numpy() for t in ts]
 
 
-def _port_agg(T, idx, n):
-    src, dst, msrc, mdst = map(torch.from_numpy, idx)
-    cnt = torch.tensor(n, dtype=torch.int32)
-    return lambda xs, xt, a_s, a_d: tgat.gat_attention_agg(
-        T, 0.2, xs, xt, a_s, a_d, src, dst, cnt, msrc, mdst)
-
-
 def _port_autodiff(T, idx, n):
-    """The port's default GATConv formulation of the same block."""
+    """The port's attention block, as GATConv calls it."""
     src, dst = torch.from_numpy(idx[0]), torch.from_numpy(idx[1])
     return lambda xs, xt, a_s, a_d: tgat.gat_attention_agg_autodiff(
         T, 0.2, xs, xt, a_s, a_d, src, dst, n)
@@ -252,6 +245,9 @@ def _port_autodiff(T, idx, n):
 
 @pytest.mark.parametrize("case", AGG_CASES)
 def test_gat_attention_agg_matches_jax(case):
+    """The port's block, forward and all four gradients, against JAX's
+    ``gat_attention_agg`` and its hand-derived backward over the
+    src-sorted mirror."""
     E, T, N, n_real, H, C = case
     idx, floats, g = _agg_inputs(*case)
     ji = tuple(map(jnp.asarray, idx))
@@ -264,7 +260,7 @@ def test_gat_attention_agg_matches_jax(case):
     jout = np.asarray(jax.jit(jf)(*jargs))
     jg = jax.jit(jax.grad(lambda *a: (jf(*a) * g).sum(),
                           argnums=(0, 1, 2, 3)))(*jargs)
-    out, grads = _torch_grads(_port_agg(T, idx, n_real), floats, g)
+    out, grads = _torch_grads(_port_autodiff(T, idx, n_real), floats, g)
     np.testing.assert_allclose(out, jout, rtol=TOL, atol=TOL)
     for name, t, j in zip(("xs", "xt", "a_src", "a_dst"), grads, jg):
         np.testing.assert_allclose(t, np.asarray(j), rtol=GRAD_TOL,
@@ -272,51 +268,44 @@ def test_gat_attention_agg_matches_jax(case):
 
 
 @pytest.mark.parametrize("case", AGG_CASES)
-def test_gat_attention_agg_matches_port_autodiff(case):
+def test_gat_attention_agg_bf16_runs(case):
+    """bf16 rows and f32 logits, as GATConv's f32 attention parameters
+    give them; pads, no pads and a hop of pads only."""
     E, T, N, n_real, H, C = case
     idx, floats, g = _agg_inputs(*case)
-    out, grads = _torch_grads(_port_agg(T, idx, n_real), floats, g)
-    ref, ref_grads = _torch_grads(_port_autodiff(T, idx, n_real), floats, g)
-    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
-    for name, a, b in zip(("xs", "xt", "a_src", "a_dst"), grads, ref_grads):
-        np.testing.assert_allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL,
-                                   err_msg=name)
-
-
-def test_gat_attention_agg_bf16_runs():
-    idx, floats, g = _agg_inputs(512, 128, 256, 400, 2, 8)
     xs, xt, a_s, a_d = (torch.from_numpy(a) for a in floats)
     xs = xs.bfloat16().requires_grad_(True)
     xt = xt.bfloat16().requires_grad_(True)
     a_s, a_d = a_s.requires_grad_(True), a_d.requires_grad_(True)
-    out = _port_agg(128, idx, 400)(xs, xt, a_s, a_d)
-    assert out.dtype == torch.bfloat16
+    out = _port_autodiff(T, idx, n_real)(xs, xt, a_s, a_d)
+    assert out.dtype == torch.bfloat16 and out.shape == (T, H, C)
     out.float().sum().backward()
     assert xs.grad.dtype == torch.bfloat16 and a_s.grad.dtype == torch.float32
     for t in (xs, xt, a_s, a_d):
         assert torch.isfinite(t.grad.float()).all()
 
 
-def test_gatconv_custom_vjp_path_matches_default(monkeypatch):
-    """SPTPU_GAT_CUSTOM_VJP=1 on a hop with a mirror takes the block with
-    the hand-derived backward; forward and gradients agree with the
-    default autodiff path, and the opt-in asks the specs for every hop's
-    mirror, as in the JAX package."""
-    from salient_plusplus_tpu_torch.sampling.batch import (BatchSpec,
-                                                           mirror_all_specs)
+def test_gatconv_ignores_the_mirror(monkeypatch):
+    """The port has one attention block and reads no switch: with the JAX
+    package's opt-in for its hand-derived backward set, GATConv gives
+    bit-identical output and gradients on a hop with and without its
+    src-sorted mirror, and GAT's specs still do not mirror the outer
+    hop."""
+    from salient_plusplus_tpu_torch.models import mirror_all_specs
+    from salient_plusplus_tpu_torch.sampling.batch import BatchSpec
 
+    monkeypatch.setenv("SPTPU_GAT_CUSTOM_VJP", "1")
+    assert not mirror_all_specs("GAT", BatchSpec.worst_case(
+        32, [4, 3]))[0].mirror_all
     src, dst, msrc, mdst, x, g, n = _conv_hop(seed=5)
     T = g.shape[0]
-    eb = EdgeBlock(src=torch.from_numpy(src), dst=torch.from_numpy(dst),
-                   count=torch.tensor(n, dtype=torch.int32),
-                   msrc=torch.from_numpy(msrc), mdst=torch.from_numpy(mdst))
+    hop = dict(src=torch.from_numpy(src), dst=torch.from_numpy(dst),
+               count=torch.tensor(n, dtype=torch.int32))
     conv = GATConv(24, 16, dtype=torch.float32,
                    generator=torch.Generator().manual_seed(0))
     res = []
-    spec = BatchSpec.worst_case(32, [4, 3])
-    for flag in ("", "1"):
-        monkeypatch.setenv("SPTPU_GAT_CUSTOM_VJP", flag)
-        assert mirror_all_specs("GAT", spec)[0].mirror_all == (flag == "1")
+    for eb in (EdgeBlock(**hop), EdgeBlock(**hop, msrc=torch.from_numpy(
+            msrc), mdst=torch.from_numpy(mdst))):
         conv.zero_grad()
         xt = torch.from_numpy(x).requires_grad_(True)
         out = conv(xt, xt[:T], eb, T)
@@ -324,7 +313,7 @@ def test_gatconv_custom_vjp_path_matches_default(monkeypatch):
         res.append([out.detach()] + [t.grad.clone() for t in
                                      (xt, *conv.parameters())])
     for a, b in zip(*res):
-        torch.testing.assert_close(a, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------ the weighted sum

@@ -4,7 +4,8 @@ the CPU.
 
 One spawn of WORLD = 2 gloo ranks (``tests/_torch_dist_worker.py``) runs
 the port's ``train_step`` for SPMD_STEPS steps and one ``eval_step`` for
-SAGE, GAT (every hop mirrored, the custom-VJP attention) and JKNet (its
+SAGE, GAT (every hop mirrored; the port's attention block reads no
+mirror, the JAX package's hand-derived one reads it) and JKNet (its
 BatchNorm statistics are averaged), with the features replicated and
 partitioned; the same wire-encoded batches and the JAX package's initial
 weights go through ``shard_map`` on a 2-device mesh. float32 and dropout
@@ -42,6 +43,8 @@ TOL = 2e-4
 
 
 def _gat_env(name):
+    # the JAX reference only: its GAT takes the hand-derived backward over
+    # the mirrored batches; the port reads no switch
     os.environ["SPTPU_GAT_CUSTOM_VJP"] = "1" if name == "GAT" else ""
 
 

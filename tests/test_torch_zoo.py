@@ -13,6 +13,7 @@ one Adam step. The JAX package's Pallas kernels run in interpret mode.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -27,15 +28,17 @@ from salient_plusplus_tpu.ops import mxu_segment as M
 from salient_plusplus_tpu.sampling import cpp as jcpp
 from salient_plusplus_tpu.sampling import sampler as jsampler
 from salient_plusplus_tpu.sampling.batch import BatchSpec as JBatchSpec
+from salient_plusplus_tpu.sampling.batch import \
+    mirror_all_specs as jmirror_all_specs
 from salient_plusplus_tpu.train import step as jstep
 from salient_plusplus_tpu.train.state import create_train_state as jcreate
 
 from salient_plusplus_tpu_torch import weights
-from salient_plusplus_tpu_torch.models import MODEL_REGISTRY, make_model
+from salient_plusplus_tpu_torch.models import (
+    MODEL_REGISTRY, MODELS, make_model, mirror_all_specs)
 from salient_plusplus_tpu_torch.sampling import cpp as tcpp
 from salient_plusplus_tpu_torch.sampling import sampler as tsampler
-from salient_plusplus_tpu_torch.sampling.batch import (BatchSpec,
-                                                       mirror_all_specs)
+from salient_plusplus_tpu_torch.sampling.batch import BatchSpec
 from salient_plusplus_tpu_torch.train import step as tstep
 from salient_plusplus_tpu_torch.train.state import TrainState
 from tests import test_reference_parity as ref
@@ -127,6 +130,25 @@ def test_make_model_builds_all_eight():
     for name in MODEL_REGISTRY:
         m = make_model(name, 8, 8, 3, 2)
         assert m.num_layers == 2 and sum(p.numel() for p in m.parameters())
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_model_traits(monkeypatch, name):
+    """What each model declares: its outer hop mirrored exactly where the
+    JAX package's rule mirrors it with its GAT switch unset (GATSkip, not
+    in its zoo, as GAT), and layer 0 reading the table exactly where the
+    forward takes ``features=``; the port's specs follow the trait."""
+    monkeypatch.delenv("SPTPU_GAT_CUSTOM_VJP", raising=False)
+    cls = MODELS[name]
+    spec = JBatchSpec.worst_case(32, [8, 3])
+    jname = "GAT" if name == "GATSkip" else name
+    assert cls.mirrors_outer_hop is jmirror_all_specs(jname,
+                                                      spec)[0].mirror_all
+    assert mirror_all_specs(name, BatchSpec.worst_case(
+        32, [8, 3]))[0].mirror_all is cls.mirrors_outer_hop
+    assert cls.reads_table_at_layer0 is (
+        "features" in inspect.signature(cls.forward).parameters)
+    assert not (cls.reads_table_at_layer0 and cls.mirrors_outer_hop)
 
 
 @pytest.mark.parametrize("name", NEW)
