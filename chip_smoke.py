@@ -5,8 +5,9 @@
 
 Drives the port's main paths (salient_plusplus_tpu_torch) on the card and
 fails (non-zero exit, no result line) if any phase fails. The kernels are
-K1 sorted segment sum, K2 fused gather + segment sum, K3 row gather and
-GAT's weighted gather + segment sum (``salient_plusplus_tpu_torch/csrc``);
+K1 sorted segment sum, K2 fused gather + segment sum, K3 row gather,
+GAT's weighted gather + segment sum and its edge softmax
+(``salient_plusplus_tpu_torch/csrc``);
 every model of the zoo goes through them.
 
 1. device: name, count, power limit; TF32 off for float32 matmuls;
@@ -28,7 +29,10 @@ every model of the zoo goes through them.
    bench-shape GAT batch's three message sums, against the float64 sum
    and timed beside the gather, multiply and K1 it replaces, and the same
    at a GATSkip batch's (4 heads of 128, of 47 in the last layer, fanouts
-   10,10,10), then one GATSkip train step's launch counts; K3's gradient
+   10,10,10); GAT's edge softmax (``ops/edge_softmax.py``) at the same
+   hops of both, against its plain chain in f32 and timed beside it with
+   its bound, forward and forward + backward; then one GATSkip train
+   step's launch counts; K3's gradient
    (ARMA's differentiable gather) against the float64 sum and
    ``index_select``'s;
 4. the driver CLI end to end at the default model shape (batch 1024,
@@ -727,12 +731,113 @@ def phase_weighted_gat(trainer, batch, dev, power, label="GAT"):
     return tot
 
 
+def phase_edge_softmax(trainer, batch, dev, power, label="GAT"):
+    """GAT's edge softmax (``ops/edge_softmax.py``, the kernel pair of
+    ``csrc/edge_softmax.cu``) at each hop of a bench batch of a GAT model
+    (``label``): bf16 logit terms a_src [N, H] and a_dst [T, H], src ids
+    that are no row past count. The kernels against the plain chain in f32
+    on the same stored terms (att and self_att within 1e-5 relative;
+    d_a_src and d_a_dst within 1e-4 of the largest, as the kernels sum in
+    f32 in another order, d_a_src by atomics, plus 2^-8 of each value, as
+    they round once to bf16),
+    then timed beside the plain chain they replace (the logits in bf16,
+    ``segment_softmax_self``; its backward by autograd): the forward alone
+    and forward + backward, each with its bound. Bytes, forward: 8 bytes
+    of ids and the gathered a_src row a real edge, att over every edge,
+    each target's two rows and self_att; backward: ids, att, g and the
+    a_src row a real edge, each target's rows, self_att, g_self and
+    d_a_dst, d_a_src zeroed in f32 and cast once. Returns the totals over
+    the hops."""
+    from salient_plusplus_tpu_torch.ops.edge_softmax import (
+        _edge_softmax_plain, edge_softmax_backward, edge_softmax_forward)
+
+    model = trainer.state.model
+    g = torch.Generator(device=dev).manual_seed(8)
+    tot = dict(fwd_ms=0.0, plain_fwd_ms=0.0, fwd_bound_ms=0.0, pair_ms=0.0,
+               plain_pair_ms=0.0, pair_bound_ms=0.0)
+    for i, e in enumerate(batch.edges):
+        N, T = batch.layer_caps(i)
+        H = getattr(model, f"conv{i}").heads
+        E, n = e.src.shape[0], int(e.count)
+        a_s = (2 * torch.randn(N, H, generator=g, device=dev)).bfloat16()
+        a_d = (2 * torch.randn(T, H, generator=g, device=dev)).bfloat16()
+        src = e.src.clone()
+        src[n:] = 2**31 - 1
+        args = (a_s, a_d, src, e.dst, e.count, T, 0.2)
+        att, sa = edge_softmax_forward(*args)
+        d_att = torch.randn(E, H, generator=g, device=dev)
+        d_sa = torch.randn(T, H, generator=g, device=dev)
+        grads = edge_softmax_backward(d_att, d_sa, *args[:5], att, sa, T,
+                                      0.2)
+        # the plain chain on the same terms in f32 (dropped src read row 0)
+        rows = torch.where(torch.arange(E, device=dev) < e.count, e.src, 0)
+        ps, pd = (t.float().requires_grad_(True) for t in (a_s, a_d))
+        r_att, r_sa = _edge_softmax_plain(ps, pd, rows, e.dst, e.count, T,
+                                          0.2)
+        real = (torch.arange(E, device=dev) < e.count) & (e.dst < T)
+        d_att0 = torch.where(real[:, None], d_att, 0.0)
+        torch.autograd.backward((r_att, r_sa), (d_att0, d_sa))
+        name = f"{label} edge softmax layer{i} (H={H})"
+        for part, got, want in (("att", att, r_att), ("self_att", sa, r_sa)):
+            err = float(((got - want.detach()).abs()
+                         / want.detach().abs().clamp_min(1e-30)).max())
+            log(f"  {name} {part}: max relative error {err:.3g}")
+            check(err < 1e-5, f"{name} {part}: max relative error {err}")
+        for part, got, want in (("d_a_src", grads[0], ps.grad),
+                                ("d_a_dst", grads[1], pd.grad)):
+            err = (got.float() - want).abs()
+            tol = 1e-4 * float(want.abs().max()) + 2.0**-8 * want.abs()
+            check(bool((err <= tol).all()),
+                  f"{name} {part}: max error {float(err.max())}")
+        check(bool((att[~real] == 0).all()), f"{name}: dropped edges")
+        del grads, ps, pd, r_att, r_sa
+        s = a_s.element_size()
+        fwd_ms = cuda_ms(lambda: edge_softmax_forward(*args))
+        pair_ms = cuda_ms(lambda: edge_softmax_backward(
+            d_att, d_sa, *args[:5], *edge_softmax_forward(*args), T, 0.2))
+        plain = (a_s, a_d, rows, e.dst, e.count, T, 0.2)
+        plain_fwd_ms = cuda_ms(lambda: _edge_softmax_plain(*plain))
+
+        def plain_pair():
+            ps = a_s.detach().requires_grad_(True)
+            pd = a_d.detach().requires_grad_(True)
+            out = _edge_softmax_plain(ps, pd, *plain[2:])
+            torch.autograd.backward(out, (d_att0, d_sa))
+
+        plain_pair_ms = cuda_ms(plain_pair)
+        fwd_bytes = n * (8 + s * H) + 4 * E * H + T * (2 * s + 4) * H
+        bwd_bytes = (n * (8 + 8 * H + s * H) + T * (3 * s + 8) * H
+                     + N * H * (4 + (4 + s if s < 4 else 0)))
+        fwd_bound = fwd_bytes / HBM_BYTES_PER_S * 1e3
+        pair_bound = (fwd_bytes + bwd_bytes) / HBM_BYTES_PER_S * 1e3
+        for k, val in (("fwd_ms", fwd_ms), ("plain_fwd_ms", plain_fwd_ms),
+                       ("fwd_bound_ms", fwd_bound), ("pair_ms", pair_ms),
+                       ("plain_pair_ms", plain_pair_ms),
+                       ("pair_bound_ms", pair_bound)):
+            tot[k] += val
+        log(f"  {name} (E={E} real={n} N={N} T={T} bf16): "
+            f"kernel_ms={fwd_ms:.4f} plain_ms={plain_fwd_ms:.4f} "
+            f"bound_us={fwd_bound * 1e3:.2f} "
+            f"bound_share={fwd_bound / fwd_ms:.3f}; with backward "
+            f"kernel_ms={pair_ms:.4f} plain_ms={plain_pair_ms:.4f} "
+            f"bound_us={pair_bound * 1e3:.2f} "
+            f"bound_share={pair_bound / pair_ms:.3f}  [{power}]")
+    log(f"  {label} edge softmax per step (3 hops): forward "
+        f"kernel_ms={tot['fwd_ms']:.4f} plain_ms={tot['plain_fwd_ms']:.4f} "
+        f"bound_us={tot['fwd_bound_ms'] * 1e3:.2f}; forward + backward "
+        f"kernel_ms={tot['pair_ms']:.4f} "
+        f"plain_ms={tot['plain_pair_ms']:.4f} "
+        f"bound_us={tot['pair_bound_ms'] * 1e3:.2f}  [{power}]")
+    return tot
+
+
 def phase_gatskip_step(trainer, dev):
     """One GATSkip train step on the card after a warm one, with every
     kernel's launch counter set to 0 just before it and
     ``ops.launch_counts()`` read just after: the weighted sum once a layer,
-    each launch multi-head, and its kernel backward once a layer; K3 once
-    (the features); no K1 or K2."""
+    each launch multi-head, and its kernel backward once a layer; the edge
+    softmax and its backward once a layer; K3 once (the features); no K1
+    or K2."""
     from salient_plusplus_tpu_torch import ops
     from salient_plusplus_tpu_torch.train.pipeline import DeviceFeeder
 
@@ -747,6 +852,7 @@ def phase_gatskip_step(trainer, dev):
         w.launches = 0
     _wrappers()["weighted_segment_sum"].multihead = 0
     _wrappers()["weighted_segment_sum"].backward = 0
+    _wrappers()["edge_softmax"].backward = 0
     loss = trainer.run_step(batch)
     torch.cuda.synchronize(dev)
     counts = ops.launch_counts()
@@ -757,7 +863,8 @@ def phase_gatskip_step(trainer, dev):
     want = {"sorted_segment_sum": 0, "fused_gather_segment_sum": 0,
             "gather_rows": 1, "weighted_segment_sum": 3,
             "weighted_segment_sum.multihead": 3,
-            "weighted_segment_sum.backward": 3}
+            "weighted_segment_sum.backward": 3, "edge_softmax": 3,
+            "edge_softmax.backward": 3}
     check(counts == want, f"GATSkip step launches {counts}: {want} "
           f"expected")
 
@@ -808,11 +915,13 @@ def _wrappers():
         sorted_segment_sum_mxu)
     from salient_plusplus_tpu_torch.ops.weighted_segment import (
         weighted_segment_sum)
+    from salient_plusplus_tpu_torch.ops.edge_softmax import edge_softmax
 
     return {"sorted_segment_sum": sorted_segment_sum_mxu,
             "fused_gather_segment_sum": fused_gather_segment_sum,
             "gather_rows": pallas_gather_rows,
-            "weighted_segment_sum": weighted_segment_sum}
+            "weighted_segment_sum": weighted_segment_sum,
+            "edge_softmax": edge_softmax}
 
 
 def driven(label, fn):
@@ -901,15 +1010,16 @@ def phase_new_models(dev, V, C, small):
     final test, ARMA (not served layerwise) batchwise at the small shape;
     each with its launch counts and final_valid above twice chance."""
     K1, K2, K3 = "sorted_segment_sum", "fused_gather_segment_sum", "gather_rows"
-    WS = "weighted_segment_sum"
+    WS, ES = "weighted_segment_sum", "edge_softmax"
     steps = train_steps(V)
     per_layer = -(-V // LAYERWISE_CHUNK)
     lw = ("--final_test_mode", "layerwise")
-    # per step: GAT the weighted sum once a hop (the message sum) and K3
-    # once (features); GCN K1 once a hop forward and once backward (every
-    # hop mirrored); layerwise: GAT the weighted sum and K3, GCN K2 and K3,
-    # once per chunk and layer
+    # per step: GAT the edge softmax and the weighted sum once a hop and
+    # K3 once (features); GCN K1 once a hop forward and once backward
+    # (every hop mirrored); layerwise: GAT the edge softmax, the weighted
+    # sum and K3, GCN K2 and K3, once per chunk and layer
     for name, want in (("GAT", {WS: 3 * steps + 3 * per_layer,
+                                ES: 3 * steps + 3 * per_layer,
                                 K3: steps + 3 * per_layer}),
                        ("GCN", {K1: 6 * steps, K2: 3 * per_layer,
                                 K3: steps + 3 * per_layer})):
@@ -1299,7 +1409,8 @@ def phase_cold_overlay(base, dev, power):
     torch.cuda.synchronize()
     got = {k: w.launches - n0[k] for k, w in wrappers.items()}
     check(got == {"sorted_segment_sum": 1, "fused_gather_segment_sum": 0,
-                  "gather_rows": 1, "weighted_segment_sum": 0},
+                  "gather_rows": 1, "weighted_segment_sum": 0,
+                  "edge_softmax": 0},
           f"overlay gather launches {got}")
     x_cpu = gather_features(tr.features.cpu(), batch.to("cpu"))
     full = base.features.index_select(0, batch.n_id.long())
@@ -1438,7 +1549,7 @@ def phase_cold_bench(base, dev, power, full_res, **bench_kw):
         steps = res["launches_per_step"]
         check(steps == {"sorted_segment_sum": 4,
                         "fused_gather_segment_sum": 1, "gather_rows": 1,
-                        "weighted_segment_sum": 0},
+                        "weighted_segment_sum": 0, "edge_softmax": 0},
               f"cold bench step launches {steps}: K1 4, K2 1, K3 1 expected")
         prof, fprof = res.get("profile") or {}, full_res.get("profile") or {}
         log(f"  [{label} vs 1.0] step_ms {res['step_ms']:.3f} vs "
@@ -1847,7 +1958,7 @@ def phase_dist_bench(tr, dev, power, single, warmup=20, steps=40):
     per_step = {k: v / steps for k, v in counts.items()}
     check(per_step == {"sorted_segment_sum": 4,
                        "fused_gather_segment_sum": 1, "gather_rows": 2,
-                       "weighted_segment_sum": 0},
+                       "weighted_segment_sum": 0, "edge_softmax": 0},
           f"distributed step launches {per_step}: K1 4, K2 1, K3 2 expected")
     step_ms = dt / steps * 1e3
     stages = {k: (m1[k] - m0[k]) / steps * 1e3 for k in m0}
@@ -2481,7 +2592,8 @@ def phase_gather_probe(table, power):
           f"gather probe {readings} ns/row below its bound {floor_ns}")
     want = PROBE_READINGS * bench.PROBE_LAUNCHES
     check(counts == {"sorted_segment_sum": 0, "fused_gather_segment_sum": 0,
-                     "gather_rows": want, "weighted_segment_sum": 0},
+                     "gather_rows": want, "weighted_segment_sum": 0,
+                     "edge_softmax": 0},
           f"gather probe launches {counts}: K3 {want} expected")
     return ns[0]
 
@@ -2554,7 +2666,8 @@ def phase_bench_runs(power, single, cold):
         check(launches == {K1: 4 * steps, K2: steps, K3: steps + probes,
                            "weighted_segment_sum": 0,
                            "weighted_segment_sum.multihead": 0,
-                           "weighted_segment_sum.backward": 0},
+                           "weighted_segment_sum.backward": 0,
+                           "edge_softmax": 0, "edge_softmax.backward": 0},
               f"bench {label}: launches {launches} in {steps} steps and "
               f"{probes} probe gathers; K1 4, K2 1, K3 1 a step expected")
 
@@ -2602,6 +2715,7 @@ def main() -> int:
     gat = model_trainer(trainer, "GAT", dev)
     batch = bench_batch(gat, dev)
     phase_weighted_gat(gat, batch, dev, power)
+    phase_edge_softmax(gat, batch, dev, power)
     phase_k3_grad(batch, dev)
     del batch, gat
     # GATSkip's multi-head weighted sums at its published widths (4 heads
@@ -2611,6 +2725,7 @@ def main() -> int:
                        train_fanouts=[10, 10, 10])
     batch = bench_batch(gs, dev)
     phase_weighted_gat(gs, batch, dev, power, label="GATSkip")
+    phase_edge_softmax(gs, batch, dev, power, label="GATSkip")
     del batch
     phase_gatskip_step(gs, dev)
     del gs
@@ -2630,9 +2745,10 @@ def main() -> int:
           f"bench step launches {steps}: K1 4, K2 1, K3 1 expected")
     full_res = res
     full_lw = phase_layerwise_bench(trainer, dev, power)
-    # per step: GAT the weighted sum 3 (message sums), GCN K1 6 (3 hops,
-    # forward and mirrored backward); K3 1 (features), K2 0 (no gsrc). One
-    # trainer on the card at a time, so each peak memory is its own
+    # per step: GAT the weighted sum and the edge softmax 3 (one a hop),
+    # GCN K1 6 (3 hops, forward and mirrored backward); K3 1 (features), K2
+    # 0 (no gsrc). One trainer on the card at a time, so each peak memory
+    # is its own
     for m, k1, ws in (("GAT", 0, 3), ("GCN", 6, 0)):
         log(f"  {m} at the bench shape:")
         other = model_trainer(trainer, m, dev)
@@ -2640,9 +2756,9 @@ def main() -> int:
         del other
         check(steps == {"sorted_segment_sum": k1,
                         "fused_gather_segment_sum": 0, "gather_rows": 1,
-                        "weighted_segment_sum": ws},
+                        "weighted_segment_sum": ws, "edge_softmax": ws},
               f"{m} bench step launches {steps}: K1 {k1}, K2 0, K3 1, "
-              f"weighted sum {ws} expected")
+              f"weighted sum and edge softmax {ws} expected")
     log(f"phase 5 bench: {time.perf_counter() - t:.1f} s")
     # phase 6
     t = time.perf_counter()

@@ -117,9 +117,10 @@ class GATConv(nn.Module):
     (zeros at init) after the concatenation or the average.
 
     The attention block (``ops/gat_agg.py::gat_attention_agg_autodiff``):
-    attention logits gathered per edge, the self-inclusive softmax, the
-    weighted message sum by the fused weighted gather + segment sum
-    (``ops/weighted_segment.py``: no [E, H·C] messages, nor in its
+    the attention logits and the self-inclusive softmax as one op
+    (``ops/edge_softmax.py``: a kernel pair on the card, no scatter or
+    sort), the weighted message sum by the fused weighted gather + segment
+    sum (``ops/weighted_segment.py``: no [E, H·C] messages, nor in its
     backward's two kernels) and the self term; autograd does the rest. It
     reads no src-sorted mirror: a hop that carries one gives the same
     result. Under a profiler the block is the span ``gat.attention``; the

@@ -8,7 +8,9 @@ Shared libraries bound with ``ctypes`` through a plain C interface:
   (``csrc/{name}.cu``, with the headers of ``csrc/`` on its include path
   and in its hash), built with ``nvcc`` for ``sm_90a``, so the kernels
   build in parallel. Only a CUDA launch asks for one; ``launch_kernel``
-  calls its C entry point ``sptpu_{name}`` on the current stream.
+  calls its C entry point ``sptpu_{name}`` (or another of the same
+  library, such as ``sptpu_edge_softmax_backward``) on the current
+  stream.
 
 All land in ``salient_plusplus_tpu_torch/_build/`` (listed in .gitignore),
 named by a hash of their source and command, so an edited source rebuilds
@@ -35,7 +37,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SAMPLER_SRC = os.path.join(_PKG_DIR, "native", "sampler.cpp")
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 KERNELS = ("sorted_segment_sum", "gather_rows", "fused_gather_segment_sum",
-           "weighted_segment_sum", "weighted_segment_grad")
+           "weighted_segment_sum", "weighted_segment_grad", "edge_softmax")
 # one lock per library, so the sampler and the kernels build in parallel
 _locks = {stem: threading.Lock()
           for stem in ("sptpu", *(f"sptpu_{k}" for k in KERNELS))}
@@ -112,23 +114,26 @@ def kernel_lib_path(name: str) -> str:
         "-I", _CSRC, "-o", out, srcs[0]])
 
 
-def launch_kernel(name: str, argtypes, device: torch.device, *args) -> None:
-    """Call ``sptpu_{name}(*args, stream)`` of ``csrc/{name}.cu`` on
-    ``device``'s current stream. ``argtypes`` types ``args`` (pointers as
-    ``c_void_p``); the C function returns ``cudaGetLastError()`` after its
-    launch, and anything but 0 raises."""
+def launch_kernel(name: str, argtypes, device: torch.device, *args,
+                  entry: str = None) -> None:
+    """Call ``sptpu_{entry}(*args, stream)`` of ``csrc/{name}.cu`` on
+    ``device``'s current stream (``entry`` defaults to ``name``).
+    ``argtypes`` types ``args`` (pointers as ``c_void_p``); the C function
+    returns ``cudaGetLastError()`` after its launch, and anything but 0
+    raises."""
+    entry = entry or name
     with _fns_lock:
-        fn = _fns.get(name)
+        fn = _fns.get(entry)
         if fn is None:
-            fn = getattr(ctypes.CDLL(kernel_lib_path(name)), f"sptpu_{name}")
+            fn = getattr(ctypes.CDLL(kernel_lib_path(name)), f"sptpu_{entry}")
             fn.restype = ctypes.c_int
             fn.argtypes = [*argtypes, ctypes.c_void_p]
-            _fns[name] = fn
+            _fns[entry] = fn
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
 
 
 def build_log(lib_path: str) -> str:

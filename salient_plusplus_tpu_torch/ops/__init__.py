@@ -1,3 +1,4 @@
+from .edge_softmax import edge_softmax as _edge_softmax
 from .pallas_aggregate import (
     fused_gather_segment_sum, fused_segment_sum_op, maybe_fused_segment_sum,
 )
@@ -22,11 +23,14 @@ __all__ = [
 def launch_counts() -> dict:
     """Each CUDA kernel's launches so far in this process, by wrapper
     (K1, K2, K3 and GAT's weighted sum, and of the weighted sum's the
-    multi-head ones apart, and its backward's calls); the plain versions
-    that run on the CPU count none."""
+    multi-head ones apart, and its backward's calls; GAT's edge softmax
+    and its backward); the plain versions that run on the CPU count
+    none."""
     return {"sorted_segment_sum": sorted_segment_sum_mxu.launches,
             "fused_gather_segment_sum": fused_gather_segment_sum.launches,
             "gather_rows": pallas_gather_rows.launches,
             "weighted_segment_sum": weighted_segment_sum.launches,
             "weighted_segment_sum.multihead": weighted_segment_sum.multihead,
-            "weighted_segment_sum.backward": weighted_segment_sum.backward}
+            "weighted_segment_sum.backward": weighted_segment_sum.backward,
+            "edge_softmax": _edge_softmax.launches,
+            "edge_softmax.backward": _edge_softmax.backward}

@@ -3,10 +3,10 @@ of the JAX package's ``ops/segment.py``).
 
 A hop's padded COO (EdgeBlock) is reduced target-wise with the padding
 masked by an iota-vs-count comparison; padded edges are routed to an extra
-row ``num_segments`` that is dropped. These are the oracles the kernel path
-(ops/sorted_segment.py) is checked against, and the narrow reductions of
-GAT's attention and ARMA's normalisation. ``gather_rows`` dispatches to the
-row-gather kernel.
+row ``num_segments`` that is dropped. These are the oracles the kernel paths
+(ops/sorted_segment.py; for GAT's attention softmax ops/edge_softmax.py)
+are checked against, and the narrow reductions of ARMA's normalisation.
+``gather_rows`` dispatches to the row-gather kernel.
 
 The JAX package takes its sorted-layout softmaxes as segmented associative
 scans, because scatters are slow on a TPU. That is a TPU device and is not
@@ -14,7 +14,9 @@ carried over: here every softmax is ``scatter_reduce("amax")``,
 ``index_add_`` and gathers, with the JAX package's guards (masked logits
 are ``-finfo.max``, never ``-inf``; denominators are floored at 1e-16;
 pad edges get attention 0). Only the results have to match; the sums run
-in another order.
+in another order. GAT's attention takes none of them on the card: there
+it launches the kernel pair of ``ops/edge_softmax.py``, and
+``segment_softmax_self`` is its CPU path and oracle.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 sorted segment sum, K2 fused gather +
 segment sum, K3 row gather, GAT's weighted gather + segment sum and its
-backward) against their plain versions, on the card.
+backward, GAT's edge softmax and its backward) against their plain
+versions, on the card.
 
 Run on a machine with an NVIDIA GPU:
 
@@ -25,13 +26,17 @@ at rtol 1e-2. K2 sums the same rows as K1 and is held to the same
 tolerances; K3 copies bytes and must be exact. GAT's weighted sum
 multiplies each row, converted to float32 exactly, by a float32 weight:
 kernel and plain version, in either row type, are held to the float64
-sum of the same products by the float32 rule.
+sum of the same products by the float32 rule. The edge softmax sums in
+float32 in another order than its plain chain, and its ``d_a_src`` by
+atomics in a varying order: it is held to the plain chain in float64 with
+the tolerances stated at its tests.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from salient_plusplus_tpu_torch.ops import edge_softmax as ES
 from salient_plusplus_tpu_torch.ops import pallas_aggregate as A
 from salient_plusplus_tpu_torch.ops import pallas_gather as G
 from salient_plusplus_tpu_torch.ops import sorted_segment as S
@@ -523,9 +528,10 @@ def test_weighted_kernel_rejects_bad_inputs(cuda_device):
 
 
 def test_gat_forward_on_card_one_weighted_launch_a_layer(cuda_device):
-    """A 3-layer GAT's scoring forward on the card: the weighted sum once a
-    layer, no K1 (so none under ``gat.attention``), logits within 1e-4 of
-    the CPU's (float32, TF32 off: summation order only)."""
+    """A 3-layer GAT's scoring forward on the card: the weighted sum and
+    the edge softmax once a layer, no K1 (so none under
+    ``gat.attention``), logits within 1e-4 of the CPU's (float32, TF32
+    off: summation order only)."""
     from salient_plusplus_tpu_torch.data import synthetic
     from salient_plusplus_tpu_torch.models import make_model
     from salient_plusplus_tpu_torch.sampling.batch import BatchSpec
@@ -554,12 +560,14 @@ def test_gat_forward_on_card_one_weighted_launch_a_layer(cuda_device):
         x = gather_features(feats.to(dev), bd)
         k1 = S.sorted_segment_sum_mxu.launches
         ws = W.weighted_segment_sum.launches
+        sf = ES.edge_softmax.launches
         with torch.no_grad():
             out[str(dev)] = m(x, bd, training=False).cpu()
         if dev != "cpu":
             torch.cuda.synchronize()
             assert S.sorted_segment_sum_mxu.launches == k1
             assert W.weighted_segment_sum.launches == ws + 3
+            assert ES.edge_softmax.launches == sf + 3
     torch.testing.assert_close(out[str(cuda_device)], out["cpu"], atol=1e-4,
                                rtol=1e-4)
 
@@ -709,6 +717,214 @@ def test_weighted_backward_writes_nothing_edge_wide(cuda_device):
     assert rise < E * H * C * 2, rise
 
 
+# GAT's edge softmax: (E, T, N, n_real, H, kind, pads), kind as in
+# _real_ids; ``pads`` dropped edges between n_real and count (dst T and
+# above, as a tight bucket leaves them), junk past count
+SOFTMAX_CASES = [
+    (4096, 512, 2000, 3900, 1, "uniform", 37),   # GAT's one head (1 x 256)
+    (4096, 512, 2000, 3900, 4, "uniform", 37),   # GATSkip's four
+    (2048, 300, 1000, 1800, 4, "hub", 0),        # empty targets
+    # one 4096-edge hub segment (80% of the real edges on row 0)
+    (5200, 256, 1000, 5120, 4, "hub", 40),
+    (5200, 256, 1000, 5120, 1, "hub", 40),
+    (512, 128, 300, 0, 4, "uniform", 0),         # an all-pad block
+    (0, 64, 100, 0, 4, "uniform", 0),            # E = 0
+    (256, 0, 100, 0, 4, "uniform", 0),           # T = 0
+    (1024, 96, 300, 900, 3, "uniform", 5),       # heads not one vector
+    (1024, 96, 300, 900, 16, "uniform", 5),      # two blocks of heads
+]
+_U = 2.0**-24  # float32's unit roundoff
+
+
+def _softmax_case(E, T, N, n_real, H, kind, pads, dtype, device, seed=0):
+    """The edge softmax's inputs: logit terms of twice unit normals (both
+    signs of the pre-activation), src ids that are no row and NaN
+    gradients on every dropped edge (never read), count = n_real + pads."""
+    rng = np.random.default_rng(seed + E + H)
+    pads = min(pads, E - n_real)
+    real = (_real_ids(rng, T, n_real, kind) if n_real
+            else np.zeros(0, np.int64))
+    dst = np.concatenate([real, np.sort(rng.integers(T, T + 3, pads)),
+                          rng.integers(0, T + 1, E - n_real - pads)])
+    src = np.concatenate([rng.integers(0, N, n_real),
+                          np.full(E - n_real, 2**31 - 1)])
+    g = rng.standard_normal((E, H)).astype(np.float32)
+    g[n_real:] = np.nan
+
+    def to(a, dt=None):
+        return torch.from_numpy(a).to(device, dt)
+
+    return (to(2 * rng.standard_normal((N, H)).astype(np.float32), dtype),
+            to(2 * rng.standard_normal((T, H)).astype(np.float32), dtype),
+            to(src.astype(np.int32)), to(dst.astype(np.int32)),
+            torch.tensor(n_real + pads, dtype=torch.int32, device=device),
+            to(g), to(rng.standard_normal((T, H)).astype(np.float32)))
+
+
+def _softmax_exact(a_src, a_dst, src, dst, cnt, T, g, g_self, ns=0.2):
+    """The plain chain in float64 from the stored inputs (dropped edges'
+    src routed to row 0, their gradients 0): att, self_att and, by
+    autograd, d_a_src and d_a_dst; with each gradient's sum of magnitudes
+    (every dz term with |g| and s_t's own magnitude) and the longest
+    segment."""
+    import torch.nn.functional as Fn
+
+    from salient_plusplus_tpu_torch.ops.segment import (
+        _real_rows, segment_softmax_self)
+
+    ids, rows = _real_rows(src, dst, cnt, T)
+    a_s = a_src.double().requires_grad_(True)
+    a_d = a_dst.double().requires_grad_(True)
+    pre = a_s.index_select(0, rows) + a_d.index_select(
+        0, dst.long().clamp(0, T - 1))
+    att, sa = segment_softmax_self(Fn.leaky_relu(pre, ns), dst, cnt, T,
+                                   Fn.leaky_relu(a_s[:T] + a_d, ns))
+    g0 = g.double().nan_to_num()
+    gs = g_self.double()
+    ((att * g0).sum() + (sa * gs).sum()).backward()
+    att, sa = att.detach(), sa.detach()
+    H = a_src.shape[1]
+    S = (torch.zeros(T + 1, H, dtype=torch.float64, device=g.device)
+         .index_add_(0, ids, att * g0.abs())[:T] + sa * gs.abs())
+    term = att * (g0.abs() + torch.cat([S, torch.zeros_like(S[:1])])[ids])
+    self_term = sa * (gs.abs() + S)
+    m_dst = (torch.zeros(T + 1, H, dtype=torch.float64, device=g.device)
+             .index_add_(0, ids, term)[:T] + self_term)
+    m_src = torch.zeros(a_src.shape, dtype=torch.float64, device=g.device
+                        ).index_add_(0, rows, term)
+    m_src[:T] += self_term
+    n_max = int(torch.bincount(ids, minlength=T + 1)[:T].max()) if T else 0
+    return (att, sa, a_s.grad, a_d.grad), (m_src, m_dst), n_max
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+def test_edge_softmax_matches_plain_chain(cuda_device, case, dtype):
+    """The kernel pair against the plain chain in float64 on the same
+    stored inputs. Tolerance k = 8 (n + 2) u, n the longest segment and u
+    float32's unit roundoff: the worst-case rounding of float32 sums of n
+    + 1 terms, taken in the denominator, in s_t and in each gradient's own
+    sum (and in a varying order by d_a_src's atomics), with room for the
+    exps. att and self_att within k of their value, d_a_dst and d_a_src
+    within k of their sum of magnitudes, plus one rounding (2^-8) where
+    they are bf16. Dropped edges get att 0 exactly, empty targets
+    self_att 1; the forward and d_a_dst are bit-identical a second time;
+    each call moves its launch counter by one, with no host sync."""
+    E, T, N, n_real, H, kind, pads = case
+    a_src, a_dst, src, dst, cnt, g, g_self = _softmax_case(
+        *case, dtype, cuda_device)
+    f0, b0 = ES.edge_softmax.launches, ES.edge_softmax.backward
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        att, sa = ES.edge_softmax_forward(a_src, a_dst, src, dst, cnt, T,
+                                          0.2)
+        d_src, d_dst = ES.edge_softmax_backward(g, g_self, a_src, a_dst,
+                                                src, dst, cnt, att, sa, T,
+                                                0.2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ES.edge_softmax.launches == f0 + 1
+    assert ES.edge_softmax.backward == b0 + int(T > 0)
+    assert att.shape == (E, H) and sa.shape == (T, H)
+    assert att.dtype == sa.dtype == torch.float32
+    assert d_src.dtype == d_dst.dtype == dtype
+    assert d_src.shape == (N, H) and d_dst.shape == (T, H)
+    real = ((torch.arange(E, device=cuda_device) < cnt)
+            & (dst < T))[:, None].expand(E, H)
+    assert bool((att[~real] == 0).all())
+    if T == 0:
+        assert bool((d_src == 0).all())
+        return
+    (r_att, r_sa, r_src, r_dst), (m_src, m_dst), n = _softmax_exact(
+        a_src, a_dst, src, dst, cnt, T, g, g_self)
+    k = 8 * (n + 2) * _U
+    assert bool(((att - r_att).abs() <= k * r_att).all())
+    assert bool(((sa - r_sa).abs() <= k * r_sa).all())
+    empty = torch.bincount(dst[:int(cnt)][dst[:int(cnt)] < T].long(),
+                           minlength=T) == 0
+    assert bool((sa[empty] == 1).all())
+    for name, got, ref, m in (("d_a_src", d_src, r_src, m_src),
+                              ("d_a_dst", d_dst, r_dst, m_dst)):
+        tol = k * m
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0**-8 * (ref.abs() + tol)
+        err = (got.double() - ref).abs()
+        assert bool((err <= tol).all()), (name, float((err - tol).max()))
+    again = ES.edge_softmax_forward(a_src, a_dst, src, dst, cnt, T, 0.2)
+    assert torch.equal(again[0], att) and torch.equal(again[1], sa)
+    again = ES.edge_softmax_backward(g, g_self, a_src, a_dst, src, dst, cnt,
+                                     att, sa, T, 0.2)
+    assert torch.equal(again[1], d_dst)
+
+
+@pytest.mark.parametrize("H,C", [(1, 256), (4, 128), (4, 47)])
+def test_gat_block_on_card_matches_cpu(cuda_device, H, C):
+    """The attention block at GAT's and GATSkip's head shapes, float32, on
+    the card (edge softmax and weighted sum, kernels both ways) against
+    the CPU's plain chain: the output and the gradients of xs, xt, a_src
+    and a_dst within 1e-5 relative (norm; summation order only), with one
+    launch of the edge softmax forward and one of its backward."""
+    from salient_plusplus_tpu_torch.ops.gat_agg import (
+        gat_attention_agg_autodiff)
+
+    E, T, N, n_real = 6000, 600, 2500, 5800
+    rng = np.random.default_rng(H * C)
+    dst = np.concatenate([np.sort(rng.integers(0, T, n_real)),
+                          np.sort(rng.integers(T, T + 2, E - n_real))])
+    src = rng.integers(0, N, E)
+    floats = [rng.standard_normal(s).astype(np.float32) for s in
+              ((N, H, C), (T, H, C), (N, H), (T, H), (T, H, C))]
+    res = {}
+    for dev in ("cpu", cuda_device):
+        xs, xt, a_s, a_d, g = (torch.from_numpy(a).to(dev) for a in floats)
+        for t in (xs, xt, a_s, a_d):
+            t.requires_grad_(True)
+        f0, b0 = ES.edge_softmax.launches, ES.edge_softmax.backward
+        out = gat_attention_agg_autodiff(
+            T, 0.2, xs, xt, a_s, a_d,
+            torch.from_numpy(src.astype(np.int32)).to(dev),
+            torch.from_numpy(dst.astype(np.int32)).to(dev), n_real + 100)
+        (out * g).sum().backward()
+        res[str(dev)] = [t.detach().cpu() for t in
+                         (out, xs.grad, xt.grad, a_s.grad, a_d.grad)]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert ES.edge_softmax.launches == f0 + 1
+            assert ES.edge_softmax.backward == b0 + 1
+    for name, a, b in zip(("out", "xs", "xt", "a_src", "a_dst"),
+                          res[str(cuda_device)], res["cpu"]):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-12))
+        assert rel < 1e-5, (name, rel)
+
+
+def test_edge_softmax_rejects_bad_inputs(cuda_device):
+    a = torch.zeros(8, 4, device=cuda_device)
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    cnt = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    fwd = ES.edge_softmax_forward
+    with pytest.raises(TypeError):
+        fwd(a, a[:2].bfloat16(), i32, i32, cnt, 2, 0.2)
+    with pytest.raises(TypeError):
+        fwd(a.half(), a[:2].half(), i32, i32, cnt, 2, 0.2)
+    with pytest.raises(TypeError):
+        fwd(a, a[:2], i32.long(), i32, cnt, 2, 0.2)
+    with pytest.raises(ValueError):
+        fwd(a, a[:3], i32, i32, cnt, 2, 0.2)
+    with pytest.raises(ValueError):
+        fwd(a[:1], a[:2], i32, i32, cnt, 2, 0.2)
+    with pytest.raises(ValueError):
+        fwd(a, a[:2], i32, i32[:4], cnt, 2, 0.2)
+    with pytest.raises(ValueError):
+        fwd(a.cpu(), a[:2], i32, i32, cnt, 2, 0.2)
+    att, sa = fwd(a, a[:2], i32, i32, cnt, 2, 0.2)
+    with pytest.raises(ValueError):
+        ES.edge_softmax_backward(att[:4], sa, a, a[:2], i32, i32, cnt, att,
+                                 sa, 2, 0.2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
@@ -748,6 +964,7 @@ def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
     feats = torch.from_numpy(np.asarray(g.x, np.float32)).to(cuda_device)
     ws, mh = W.weighted_segment_sum.launches, W.weighted_segment_sum.multihead
     wb = W.weighted_segment_sum.backward
+    sf, sb = ES.edge_softmax.launches, ES.edge_softmax.backward
     logp = model(gather_features(feats, b), b, training=True)
     ns = int(b.seed_count)
     loss = torch.nn.functional.nll_loss(logp[:ns], b.y[:ns].long())
@@ -756,6 +973,8 @@ def test_gatskip_step_on_card_matches_reference(cuda_device, dtype):
     assert W.weighted_segment_sum.launches == ws + 3
     assert W.weighted_segment_sum.multihead == mh + 3
     assert W.weighted_segment_sum.backward == wb + 3
+    assert ES.edge_softmax.launches == sf + 3
+    assert ES.edge_softmax.backward == sb + 3
     ls = [int(v) for v in b.level_sizes]
     hops = [(e.src[:int(e.count)].long(), e.dst[:int(e.count)].long())
             for e in b.edges]

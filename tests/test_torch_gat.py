@@ -1,5 +1,6 @@
 """GAT in the port against the JAX package, on the CPU: the four softmax
-ops of ``ops/segment.py``, ``GATConv`` forward and gradients, the
+ops of ``ops/segment.py``, the edge softmax's entry (``ops/
+edge_softmax.py``: its plain chain), ``GATConv`` forward and gradients, the
 attention block ``ops/gat_agg.py`` against JAX's block and its
 hand-derived backward, ``GATConv`` with and without the hop's mirror, and
 the block's fused weighted sum (``ops/weighted_segment.py``) against a
@@ -29,6 +30,7 @@ from salient_plusplus_tpu.sampling.batch import EdgeBlock as JEdgeBlock
 
 from salient_plusplus_tpu_torch import weights
 from salient_plusplus_tpu_torch.models.layers import GATConv
+from salient_plusplus_tpu_torch.ops import edge_softmax as tes
 from salient_plusplus_tpu_torch.ops import gat_agg as tgat
 from salient_plusplus_tpu_torch.ops import segment as tseg
 from salient_plusplus_tpu_torch.ops import weighted_segment as tws
@@ -132,6 +134,66 @@ def test_segment_softmax_self_gradients_match_jax():
     for j, t in zip(gj, (lg.grad, sl.grad)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=GRAD_TOL,
                                    atol=GRAD_TOL)
+
+
+# ------------------------------------------------------------ edge_softmax
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+def test_edge_softmax_entry_matches_jax(case):
+    """The edge softmax's entry on the CPU (the plain chain it keeps there)
+    against JAX's leaky ReLU of the gathered logit terms and its
+    ``segment_softmax_self``: att, self_att and the gradients of a_src and
+    a_dst, with pads at T and above it, empty targets and a hop with no
+    real edges."""
+    E, T, n_real, H, above = case
+    dst, _, _ = _softmax_case(*case)
+    rng = np.random.default_rng(E + H)
+    N = T + 40
+    src = rng.integers(0, N, E).astype(np.int32)
+    a_s, wa = (rng.standard_normal((n, H)).astype(np.float32)
+               for n in (N, E))
+    a_d, ws = (rng.standard_normal((T, H)).astype(np.float32)
+               for _ in range(2))
+
+    def jf(a_s, a_d):
+        lg = jax.nn.leaky_relu(a_s[src] + a_d[np.minimum(dst, T - 1)], 0.2)
+        sl = jax.nn.leaky_relu(a_s[:T] + a_d, 0.2)
+        return jseg.segment_softmax_self(lg, jnp.asarray(dst), n_real, T, sl)
+
+    def jloss(a_s, a_d):
+        a, s = jf(a_s, a_d)
+        return (a * wa).sum() + (s * ws).sum()
+
+    jout = jax.jit(jf)(a_s, a_d)
+    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1)))(a_s, a_d)
+    ts, td = (torch.from_numpy(a).requires_grad_(True) for a in (a_s, a_d))
+    out = tes.edge_softmax(ts, td, torch.from_numpy(src),
+                           torch.from_numpy(dst), n_real, T, 0.2)
+    for t, j in zip(out, jout):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   rtol=SOFTMAX_TOL, atol=SOFTMAX_TOL)
+    assert np.all(out[0].detach().numpy()[n_real:] == 0)
+    ((out[0] * torch.from_numpy(wa)).sum()
+     + (out[1] * torch.from_numpy(ws)).sum()).backward()
+    for name, t, j in (("a_src", ts.grad, jgrads[0]),
+                       ("a_dst", td.grad, jgrads[1])):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+
+
+def test_edge_softmax_kernels_refuse_cpu_tensors():
+    """The kernel wrappers launch or raise: CPU tensors are refused before
+    any build or launch, and the CPU entry counts no launch."""
+    a = torch.zeros(8, 2)
+    i32 = torch.zeros(8, dtype=torch.int32)
+    cnt = torch.tensor(8, dtype=torch.int32)
+    before = (tes.edge_softmax.launches, tes.edge_softmax.backward)
+    with pytest.raises(ValueError):
+        tes.edge_softmax_forward(a, a[:2], i32, i32, cnt, 2, 0.2)
+    with pytest.raises(ValueError):
+        tes.edge_softmax_backward(a, a[:2], a, a[:2], i32, i32, cnt, a,
+                                  a[:2], 2, 0.2)
+    tes.edge_softmax(a, a[:2], i32, i32, cnt, 2, 0.2)
+    assert (tes.edge_softmax.launches, tes.edge_softmax.backward) == before
 
 
 # ---------------------------------------------------------------- GATConv

@@ -226,7 +226,7 @@ def test_train_step_spans_and_counters(graph):
     """A train step records ``gat.skip`` once a layer inside
     ``step.forward`` and ``gat.attention.backward`` once a layer (on
     autograd's thread); ``launch_counts`` names the multi-head launches
-    (none on the CPU)."""
+    and the edge softmax's (none on the CPU)."""
     tr = Trainer(_cfg(), graph, device="cpu")
     tr.train_sampler.set_epoch(tr.shuffler.get_idx(0), 0)
     batch = next(tr._feeder(iter(tr.train_sampler), 1))
@@ -244,6 +244,7 @@ def test_train_step_spans_and_counters(graph):
             assert p is not None and p.name == "step.forward"
     counts = launch_counts()
     assert counts["weighted_segment_sum.multihead"] == 0
+    assert counts["edge_softmax"] == counts["edge_softmax.backward"] == 0
 
 
 @pytest.mark.parametrize("mode", ["batchwise", "layerwise"])

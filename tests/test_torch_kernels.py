@@ -173,10 +173,10 @@ def test_new_wrappers_refuse_other_devices():
 
 
 def test_segment_kernels_hash_their_shared_header(monkeypatch):
-    """K1, K2 and GAT's weighted sum and its gradients include
-    csrc/segment_common.cuh: the header is on nvcc's include path and joins
-    each library's hash, so an edited header rebuilds all four (nothing is
-    compiled here)."""
+    """K1, K2, GAT's weighted sum and its gradients, and GAT's edge softmax
+    include csrc/segment_common.cuh: the header is on nvcc's include path
+    and joins each library's hash, so an edited header rebuilds all five
+    (nothing is compiled here)."""
     from salient_plusplus_tpu_torch.native import build
 
     seen = {}
@@ -184,7 +184,8 @@ def test_segment_kernels_hash_their_shared_header(monkeypatch):
     monkeypatch.setattr(build, "_build", lambda stem, srcs, cmd_for: seen
                         .setdefault(stem, (srcs, cmd_for("OUT"))))
     for name in ("sorted_segment_sum", "fused_gather_segment_sum",
-                 "weighted_segment_sum", "weighted_segment_grad"):
+                 "weighted_segment_sum", "weighted_segment_grad",
+                 "edge_softmax"):
         build.kernel_lib_path(name)
         srcs, cmd = seen[f"sptpu_{name}"]
         assert srcs[0].endswith(f"csrc/{name}.cu") and cmd[-1] == srcs[0]
@@ -232,6 +233,30 @@ def test_weighted_grad_entry_point_matches_its_argtypes():
            .rsplit(" ", 1)[0].replace(" *", "*") for p in params]
     assert got == want
     assert "weighted_segment_grad" in build.KERNELS
+
+
+@pytest.mark.parametrize("entry,argtypes", [
+    ("edge_softmax", "_ARGTYPES"),
+    ("edge_softmax_backward", "_GRAD_ARGTYPES")])
+def test_edge_softmax_entry_points_match_their_argtypes(entry, argtypes):
+    """The two C entry points of csrc/edge_softmax.cu (forward and
+    backward, one library) take their wrapper's ctypes arguments and the
+    stream, floats as float (nothing is compiled here)."""
+    import re
+
+    from salient_plusplus_tpu_torch.native import build
+    from salient_plusplus_tpu_torch.ops import edge_softmax as ES
+
+    with open(f"{build._CSRC}/edge_softmax.cu") as f:
+        params = re.search(rf"int sptpu_{entry}\(([^)]*)\)",
+                           f.read()).group(1).split(",")
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int: "int",
+             ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
+    want = [kinds[t] for t in getattr(ES, argtypes)] + ["void*"]
+    got = [re.sub(r"\s+", " ", p).replace("const ", "").strip()
+           .rsplit(" ", 1)[0].replace(" *", "*") for p in params]
+    assert got == want
+    assert "edge_softmax" in build.KERNELS
 
 
 def test_split_scratch_matches_the_kernels_slice():
